@@ -1,6 +1,6 @@
 """The benchmark harness itself is part of the proof surface: its JSON
-contract (driver-facing), its parity self-check, and the sharded
-(shard_map) measurement path must not rot.  Smoke runs on CPU."""
+contract, its parity self-check, its refusal to time the CPU, and the
+sharded (shard_map) measurement path must not rot.  Smoke runs on CPU."""
 
 import json
 import subprocess
@@ -10,7 +10,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _run_bench(*flags):
+def _run_bench(*flags, lines=False):
     from conftest import cpu_subprocess_env
 
     env = cpu_subprocess_env(
@@ -19,7 +19,8 @@ def _run_bench(*flags):
         [sys.executable, "bench.py", "--smoke", *flags],
         cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
     assert out.returncode == 0, (out.stdout[-500:], out.stderr[-2000:])
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    rows = [json.loads(r) for r in out.stdout.strip().splitlines()]
+    return rows if lines else rows[-1]
 
 
 def test_bench_smoke_json_contract():
@@ -27,135 +28,88 @@ def test_bench_smoke_json_contract():
     assert r["metric"] == "sectors_per_second_3ch"
     assert r["value"] > 0 and r["unit"] == "sectors/s"
     assert r["vs_baseline"] > 0
-    # the parity self-check gates every run (exit 1 + JSON error on
-    # failure); its measurements ride in the result
-    e0, e1 = r["parity_rel_l2"]
-    assert e0 < 1e-4 and e1 < 1e-3
-    # the pipelined with-H2D metric (the production streaming form,
-    # VERDICT r3 item 8) must ride in every result
+    # the flagship route, gated by its parity check (exit 1 + JSON error
+    # on failure); the measurements ride in the result
+    from wrp_tpu.parity import LIMITS
+    from wrp_tpu.pipeline import DEFAULT_METHOD
+
+    assert r["method"] == DEFAULT_METHOD and r["in_dtype"] == "i16"
+    assert r["parity_ok"]
+    for k, lim in LIMITS.items():
+        assert r["parity"][k] < lim, k
+    assert r["parity"]["salted"] < 1e-3
+    # the pipelined with-H2D metric (the streaming form) rides in every
+    # result, and every result names its device
     assert r["sectors_per_second_with_h2d_pipelined"] > 0
-    # session calibration fields exist (null on CPU smoke: the probe
-    # is a TPU yardstick, VERDICT r3 item 2)
-    assert "calib_tflops" in r and "value_normalized" in r
-    assert r["calib_tflops"] is None and r["value_normalized"] is None
+    assert r["device"]["platform"] == "cpu" and r["device"]["count"] == 8
+    assert "card" in r
 
 
 def test_bench_smoke_sharded_runs_under_mesh():
-    """--sharded wraps the salted loop in shard_map (the compiled-on-
-    metal configuration, SHARDED_TPU_r03.json); keep the CPU lowering
-    and both production sharded entries' parity checks alive."""
+    """--sharded wraps the salted loop around the data-parallel sharded
+    step; its parity against the single-device route rides along."""
     r = _run_bench("--sharded", "2")
     assert r["sharded_devices"] == 2
-    par = r["sharded_parity_rel_l2"]
-    assert par["pallas"] < 1e-4      # vs unsharded flagship
-    assert par["mxu"] < 1e-3         # transpose path, degenerate seq=1
+    assert r["sharded_parity_rel_l2"] < 1e-5
     assert r["value"] > 0
 
 
 def test_bench_smoke_salted_xla_method():
-    """The ladder methods run under the per-repeat-salted loop; the
+    """Every formulation runs under the per-step-salted loop; the
     self-check pins the cancellation residual."""
     r = _run_bench("--method", "parseval")
     assert r["method"] == "parseval"
-    assert r["parity_rel_l2"][1] < 1e-3
+    assert r["parity"]["salted"] < 1e-3
 
 
 def test_bench_smoke_wire_staging_decodes_on_chip():
     """--in-dtype wire stages RAW reference wire bytes and decodes them
-    inside the timed span; the default wire-decode mode is the FUSED
-    kernel (decode inside fused_chain_power_wire — no deinterleave) and
-    the parity gate proves it reproduces the host-decoded processor."""
+    on the device inside the timed span; the parity gate proves the
+    route still matches the oracle."""
     r = _run_bench("--in-dtype", "wire")
-    assert r["in_dtype"] == "wire"
-    assert r["wire_decode"] == "fused"
-    e0, e1 = r["parity_rel_l2"]
-    assert e0 < 1e-4 and e1 < 1e-3
+    assert r["in_dtype"] == "wire" and r["parity_ok"]
+    assert r["sectors_per_second_with_h2d"] > 0
     assert r["value"] > 0
 
 
 def test_bench_smoke_wire_xla_decode_mode():
-    """--wire-decode xla keeps the r4 standalone-decode formulation
-    (decode_wire_i16 + planar kernel) measurable as the A/B reference."""
-    r = _run_bench("--in-dtype", "wire", "--wire-decode", "xla")
-    assert r["wire_decode"] == "xla"
-    e0, e1 = r["parity_rel_l2"]
-    assert e0 < 1e-4 and e1 < 1e-3
+    """The on-device decode is plain XLA and feeds any formulation."""
+    r = _run_bench("--in-dtype", "wire", "--method", "mxu")
+    assert r["method"] == "mxu" and r["parity_ok"]
     assert r["value"] > 0
 
 
-def test_wire_ab_smoke_contract():
-    """tools/wire_ab.py (the wire-fused cost decomposition behind the
-    round-5 wire rework) must keep its parity pins (fused-vs-i16 kernel,
-    strided-vs-take bit-identity) and JSON contract alive."""
+def test_bench_routes_smoke_table():
+    """--routes times every formulation under every dot precision on one
+    staging; a precision the backend refuses is recorded, not hidden,
+    and the summary names the fastest route inside the limits."""
+    from wrp_tpu.pipeline import METHODS, PRECISIONS
+
+    rows = _run_bench("--routes", lines=True)
+    routes, summary = rows[:-1], rows[-1]
+    assert len(routes) == 1 + (len(METHODS) - 1) * len(PRECISIONS)
+    assert {r["method"] for r in routes} == set(METHODS)
+    assert all(r.get("parity_ok") or "error" in r for r in routes)
+    assert summary["metric"] == "route_table"
+    assert summary["fastest_within_tolerance"]["method"] in METHODS
+
+
+def test_bench_without_gpu_exits_nonzero():
+    """Outside --smoke the bench measures the card only: on the CPU it
+    exits non-zero and prints no result."""
     from conftest import cpu_subprocess_env
 
     out = subprocess.run(
-        [sys.executable, "tools/wire_ab.py", "--smoke"],
-        cwd=REPO, capture_output=True, text=True, timeout=300,
-        env=cpu_subprocess_env())
-    assert out.returncode == 0, (out.stdout[-500:], out.stderr[-2000:])
-    r = json.loads(out.stdout.strip().splitlines()[-1])
-    assert r["parity_wire_vs_i16_rel_l2"] < 1e-5
-    for v in ("k_i16", "k_wire", "k_wire_strided", "take+slice+k_wire",
-              "slice+k_wire"):
-        assert "error" not in r[v], (v, r[v])
-        assert r[v]["us_per_sector"] > 0, (v, r[v])
-
-
-def test_ab_sweep_smoke_contract():
-    """tools/ab_sweep.py (the one-staging variant sweep) must keep its
-    per-variant JSON contract and parity gates alive; a 3-variant subset
-    covering the flat, pre-paired, and pre-quadded stagings keeps this
-    fast."""
-    from conftest import cpu_subprocess_env
-
-    out = subprocess.run(
-        [sys.executable, "tools/ab_sweep.py", "--smoke",
-         "--variants", "kcat,pair_pre_int,quad_pre_int"],
-        cwd=REPO, capture_output=True, text=True, timeout=300,
-        env=cpu_subprocess_env())
-    assert out.returncode == 0, (out.stdout[-500:], out.stderr[-2000:])
-    lines = [json.loads(l) for l in out.stdout.strip().splitlines()]
-    assert len(lines) == 4   # 3 variants + summary
-    for row in lines[:3]:
-        assert row["parity_ok"], row
-        e0, e1 = row["parity_rel_l2"]
-        assert e0 < 1e-4 and e1 < 1e-3
-        assert row["sectors_per_second"] > 0
-    assert lines[0]["variant"] == "kcat" and lines[0]["xpair"] is None
-    assert lines[1]["variant"] == "pair_pre_int"
-    assert lines[1]["xsplit"] == "int" and lines[1]["xpair"] == "pre"
-    assert lines[2]["variant"] == "quad_pre_int"
-    assert lines[2]["xsplit"] == "int" and lines[2]["xpair"] == "pre4"
-    assert lines[3]["best"] in ("kcat", "pair_pre_int", "quad_pre_int")
-
-
-def test_decode_ab_smoke_contract():
-    """tools/decode_ab.py (the on-chip wire-decode A/B behind
-    DECODE_AB_r04.json) must keep all seven variants parity-pinned to
-    the host decoder and its JSON contract alive — it was the one
-    measurement tool without a contract test (VERDICT r3 item 1)."""
-    from conftest import cpu_subprocess_env
-
-    out = subprocess.run(
-        [sys.executable, "tools/decode_ab.py", "--smoke"],
-        cwd=REPO, capture_output=True, text=True, timeout=300,
-        env=cpu_subprocess_env())
-    assert out.returncode == 0, (out.stdout[-500:], out.stderr[-2000:])
-    r = json.loads(out.stdout.strip().splitlines()[-1])
-    names = ["v0_current", "v1_take_rows", "v2_slices", "v3_flat",
-             "v4_i32", "v5_byteslice", "v6_bitcast_slice"]
-    for v in names:
-        # parity failures and compile errors land as {"error": ...};
-        # a healthy variant reports its timing fields
-        assert "error" not in r[v], (v, r[v])
-        assert r[v]["us_per_sector"] > 0, (v, r[v])
+        [sys.executable, "bench.py"], cwd=REPO, capture_output=True,
+        text=True, timeout=300, env=cpu_subprocess_env())
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""
+    assert "no GPU" in out.stderr
 
 
 def test_consolidation_soak_smoke_contract():
-    """tools/consolidation_soak.py (the N-feeds-one-chip scaling
-    evidence behind CONSOLIDATION_r04.json) must keep its per-feed JSON
-    contract alive: a udp+zmq feed pair, per-feed latency percentiles,
+    """tools/consolidation_soak.py (the N-feeds-one-card scaling soak)
+    must keep its per-feed JSON contract alive: a udp+zmq feed pair, per-feed latency percentiles,
     loss accounting, and the per-feed fp64-oracle contamination check
     (with its wrong-feed teeth probe)."""
     from conftest import cpu_subprocess_env
@@ -178,23 +132,3 @@ def test_consolidation_soak_smoke_contract():
         assert row["processed_sectors"] > 0
         assert row["verify_rel_l2_max"] < 1e-6     # CPU fp32 floor
         assert row["p99_ms"] is not None
-
-
-def test_int_split_repro_smoke_contract():
-    """tools/int_split_repro.py (the filing-ready reduction of the
-    Mosaic int-mask SIGABRT, VERDICT r3 item 5b) must keep both its
-    variants runnable in interpret mode and its JSON contract alive —
-    on the TPU the int variant documents the toolchain failure, so the
-    harness around it must not rot."""
-    from conftest import cpu_subprocess_env
-
-    for variant in ("int", "f32"):
-        out = subprocess.run(
-            [sys.executable, "tools/int_split_repro.py", "--smoke",
-             "--variant", variant],
-            cwd=REPO, capture_output=True, text=True, timeout=300,
-            env=cpu_subprocess_env())
-        assert out.returncode == 0, (variant, out.stdout[-300:],
-                                     out.stderr[-2000:])
-        r = json.loads(out.stdout.strip().splitlines()[-1])
-        assert r["variant"] == variant and r["ok"] and not r["repro"]

@@ -227,6 +227,21 @@ def test_cli_volume_render_all_mosaic(tmp_path):
     assert not cut1.any()
 
 
+def _free_udp_ports(count):
+    """Ports of this test's own: the config's default result ports are
+    shared with every stream another test worker runs."""
+    import socket
+
+    socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+             for _ in range(count)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
 def test_cli_consume_accumulates_volume(tmp_path, monkeypatch, capsys):
     """consume --volume: received zdb+zdr frames become a renderable
     volume checkpoint (the consumer as a display endpoint, not a print
@@ -240,6 +255,7 @@ def test_cli_consume_accumulates_volume(tmp_path, monkeypatch, capsys):
 
     cfg = DEFAULT_CONFIG
     k = cfg.num_output_bins
+    zdb_port, zdr_port = _free_udp_ports(2)
 
     def send():
         s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
@@ -247,16 +263,17 @@ def test_cli_consume_accumulates_volume(tmp_path, monkeypatch, capsys):
             zdb = np.full(k, 30.0 + sec, np.float32)
             zdr = np.full(k, 0.5, np.float32)
             s.sendto(frames.pack_result_v1(sec, zdb),
-                     ("127.0.0.1", cfg.udp_zdb_port))
+                     ("127.0.0.1", zdb_port))
             s.sendto(frames.pack_result_v1(sec, zdr),
-                     ("127.0.0.1", cfg.udp_zdr_port))
+                     ("127.0.0.1", zdr_port))
         s.close()
 
     t = threading.Timer(0.5, send)
     t.start()
     vol = tmp_path / "rx.npz"
     rc = cli.main(["consume", "--transport", "udp", "--count", "2",
-                   "--timeout", "5", "--volume", str(vol)])
+                   "--timeout", "5", "--volume", str(vol),
+                   "--port", str(zdb_port), "--zdr-port", str(zdr_port)])
     t.join()
     assert rc == 0
     vs = VolumeScan.load(vol)
@@ -322,20 +339,22 @@ def test_cli_consume_survives_runt_datagram(tmp_path):
 
     cfg = DEFAULT_CONFIG
     k = cfg.num_output_bins
+    zdb_port, zdr_port = _free_udp_ports(2)
 
     def send():
         s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-        s.sendto(b"\x01", ("127.0.0.1", cfg.udp_zdb_port))      # runt
+        s.sendto(b"\x01", ("127.0.0.1", zdb_port))      # runt
         s.sendto(frames.pack_result_v1(2, np.full(k, 9.0, np.float32)),
-                 ("127.0.0.1", cfg.udp_zdb_port))
+                 ("127.0.0.1", zdb_port))
         s.sendto(frames.pack_result_v1(2, np.full(k, 0.25, np.float32)),
-                 ("127.0.0.1", cfg.udp_zdr_port))
+                 ("127.0.0.1", zdr_port))
         s.close()
 
     threading.Timer(0.5, send).start()
     vol = tmp_path / "rx.npz"
     rc = cli.main(["consume", "--transport", "udp", "--count", "1",
-                   "--timeout", "5", "--volume", str(vol)])
+                   "--timeout", "5", "--volume", str(vol),
+                   "--port", str(zdb_port), "--zdr-port", str(zdr_port)])
     assert rc == 0
     vs = VolumeScan.load(vol)
     assert vs.coverage[2, 0]

@@ -146,7 +146,7 @@ def test_pipeline_accepts_i16_planar():
     from wrp_tpu import oracle
     from wrp_tpu.config import tiny_config
     from wrp_tpu.io import codec
-    from wrp_tpu.pipeline import SectorProcessor
+    from wrp_tpu.pipeline import DEFAULT_METHOD, SectorProcessor
 
     cfg = tiny_config(m=64, n=32)
     rng = np.random.default_rng(6)
@@ -154,7 +154,7 @@ def test_pipeline_accepts_i16_planar():
           + 1j * rng.integers(-8192, 8192, cfg.sector_shape))
     zdb64, _ = oracle.process_sector(iq, cfg)
     p16 = codec.decode_iq_i16(codec.encode_iq(iq, cfg), cfg)
-    for method in ("mxu", "pallas"):
+    for method in ("mxu", DEFAULT_METHOD):
         proc = SectorProcessor(cfg, method=method)
         zdb, _ = proc(p16[None])
         assert oracle.relative_l2(zdb64, np.asarray(zdb)[0]) < 1e-5
@@ -230,7 +230,7 @@ def test_wire_parsers_fuzz_clean_failures():
 
 
 def test_device_decode_matches_host_decoder_exactly():
-    """ops/device_codec.decode_wire_i16 (chip-side decode) must be
+    """ops/device_codec.decode_wire_i16 (device-side decode) must be
     bit-identical to the host decoder for every layout it replaces:
     natural order, radix order, batched, int16 extremes included."""
     import jax

@@ -153,9 +153,9 @@ def test_native_decode_simd_paths_and_tails(ch, n, dtype, rng):
 @pytest.mark.parametrize("ch", [2, 3])
 @pytest.mark.parametrize("radix", [4, 8])
 def test_native_decode_radix_order_matches_permutation(ch, radix, rng):
-    """radix>1 must equal the natural-order decode with the kernel's row
+    """radix>1 must equal the natural-order decode with the canonical row
     permutation applied — for every SIMD/scalar path."""
-    from wrp_tpu.ops.pallas.fullchain import radix_row_order
+    from wrp_tpu.io.codec import radix_row_order
 
     m, n = 32, 12
     wire = bytes(rng.integers(0, 256, m * n * ch * 4, np.uint8))
@@ -222,11 +222,11 @@ def test_native_encode_out_of_contract_values_consistent(rng):
 @pytest.mark.parametrize("group", [2, 4])
 @pytest.mark.parametrize("radix", [1, 8])
 def test_native_decode_grouped_matches_pair_lanes(ch, group, radix, rng):
-    """Grouped emit (the pair="pre"/"pre4" device-feed layout written
-    during the decode pass) must equal pair_lanes() applied to the
+    """Grouped emit (the lane-grouped layout written during the decode
+    pass) must equal pair_lanes() applied to the
     plain per-sector decode — including channel-sectors straddling
     sector boundaries (ch=3 with group 2/4) and radix row order."""
-    from wrp_tpu.ops.pallas.fullchain import pair_lanes
+    from wrp_tpu.io.codec import pair_lanes
 
     m, n = 32, 12
     sectors = 4                            # total_cs = 8 or 12

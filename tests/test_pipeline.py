@@ -186,7 +186,7 @@ def test_geometry_sweep_all_methods(m, n, channels):
     cfg = tiny_config(m=m, n=n, channels=channels)
     iq = oracle.synthetic_iq(cfg, kind="noise", seed=m + n)
     zdb64, zdr64 = oracle.process_sector(iq, cfg)
-    for method in ("fft", "mxu", "parseval", "pallas", "radix"):
+    for method in pipeline.METHODS:
         proc = pipeline.SectorProcessor(cfg, method=method)
         zdb, zdr = proc(jnp.asarray(iq[None], jnp.complex64))
         err = oracle.relative_l2(zdb64, np.asarray(zdb)[0])
@@ -207,15 +207,14 @@ def test_matched_filter_validation_and_unsupported_combos():
     with pytest.raises(ValueError):
         SectorProcessor(cfg, method="mxu", matched_filter="folded")  # typo
     with pytest.raises(ValueError):
-        SectorProcessor(cfg, method="pallas", matched_filter="spectral")
-    with pytest.raises(ValueError):
         SectorProcessor(cfg, method="radix", matched_filter="spectral")
+    with pytest.raises(ValueError, match="unknown method"):
+        SectorProcessor(cfg, method="pallas")      # removed, not aliased
 
 
 def test_unbatched_planar_input_consistent_across_methods():
     """A single decoded sector [C, 2, m, n] (no batch axis) must work on
-    every method and give the same answer as the batched call — the
-    pallas/radix paths used to crash unpacking a missing batch dim."""
+    every method and give the same answer as the batched call."""
     import numpy as np
 
     from wrp_tpu import oracle
@@ -225,7 +224,7 @@ def test_unbatched_planar_input_consistent_across_methods():
     cfg = tiny_config(m=32, n=16)
     iq = oracle.synthetic_iq(cfg, kind="noise", seed=7)
     planar = to_planar(np.asarray(iq, np.complex64))
-    for method in ("mxu", "pallas"):
+    for method in ("mxu", pipeline.DEFAULT_METHOD):
         proc = SectorProcessor(cfg, method=method)
         zdb_b, _ = proc(planar[None])
         zdb_u, _ = proc(planar)

@@ -186,7 +186,7 @@ def test_two_deep_pipeline_dispatch_then_complete():
     assert ex._complete_batch(p1) == 2
     assert ex._complete_batch(p2) == 2
     assert ex.timers.summary()["compute/h2d_enqueue"]["count"] >= 2
-    proc = SectorProcessor(cfg, method="mxu")
+    proc = SectorProcessor(cfg)         # the executor's default route
     for k in range(4):
         zdb, _ = proc(codec.decode_iq(wires[k], cfg)[None])
         np.testing.assert_array_equal(got[k], np.asarray(zdb)[0])
@@ -230,9 +230,9 @@ def test_executor_results_match_direct_pipeline():
         batch=2, max_sectors=3,
     )
     ex.run()
-    proc = SectorProcessor(cfg, method="mxu")
+    proc = SectorProcessor(cfg)         # the executor's default route
     for k, wire in enumerate(wires):
-        planar = codec.decode_iq(wire, cfg)
+        planar = codec.decode_iq_i16(wire, cfg)     # its compact feed
         zdb, zdr = proc(planar[None])
         np.testing.assert_array_equal(got[k][0], np.asarray(zdb)[0])
         np.testing.assert_array_equal(got[k][1], np.asarray(zdr)[0])

@@ -1,6 +1,6 @@
 """Loopback streaming integration tests over real sockets.
 
-The TPU-framework formalisation of the reference's localhost test topology:
+The framework formalisation of the reference's localhost test topology:
 producer process -> processor -> consumers over 127.0.0.1
 (read_single.cc:125-127; rpv2.cu tcp://localhost:5563/5564, SURVEY.md
 section 4.5).  Uses ephemeral ports so tests don't collide.
@@ -370,15 +370,15 @@ def test_zmq_loopback_pipeline(cfg):
 
 
 def test_full_udp_streaming_pipeline_pallas(cfg):
-    """Streaming with the fused-kernel fast path: int16 radix-order decode
-    feeds the pallas processor directly (no on-device permutation)."""
+    """Streaming on the flagship route with its compact int16 host decode
+    (the chain casts on the device)."""
     n_sectors = 4
     sectors = _wire_sectors(cfg, n_sectors, seed=9)
     ingest = UdpIngest(cfg, port=0, timeout_s=2.0)
     got = {}
 
     ex = StreamingExecutor(
-        cfg, transport=ingest, method="pallas", batch=2,
+        cfg, transport=ingest, batch=2,
         max_sectors=n_sectors,
         publish=lambda sector, elevation, zdb, zdr: got.__setitem__(
             sector, (zdb.copy(), zdr.copy())),
@@ -398,23 +398,20 @@ def test_full_udp_streaming_pipeline_pallas(cfg):
     producer.close()
 
 
-@pytest.mark.parametrize("wire_order", ["radix", "natural"])
-def test_full_udp_streaming_pipeline_device_decode(cfg, wire_order):
+@pytest.mark.parametrize("method", ["mxu", "fft"])
+def test_full_udp_streaming_pipeline_device_decode(cfg, method):
     """device_decode: ingest threads ship RAW wire bytes and the
-    byteswap/deinterleave (+ radix-reorder with wire_order='natural';
-    with the default 'radix' the ingest thread pre-permutes the rows —
-    io/codec.reorder_wire_rows — and the device skips its take) runs
-    on-chip inside the processor's jit (ops/device_codec) — products
-    must still match the fp64 oracle exactly like the host-decoded
-    pallas path."""
+    byteswap/deinterleave runs on the device inside the processor's jit
+    (ops/device_codec), for any formulation — products must still match
+    the fp64 oracle exactly like the host-decoded path."""
     n_sectors = 4
     sectors = _wire_sectors(cfg, n_sectors, seed=13)
     ingest = UdpIngest(cfg, port=0, timeout_s=2.0)
     got = {}
 
     ex = StreamingExecutor(
-        cfg, transport=ingest, method="pallas", batch=2,
-        max_sectors=n_sectors, device_decode=True, wire_order=wire_order,
+        cfg, transport=ingest, method=method, batch=2,
+        max_sectors=n_sectors, device_decode=True,
         publish=lambda sector, elevation, zdb, zdr: got.__setitem__(
             sector, (zdb.copy(), zdr.copy())),
     )
@@ -435,14 +432,14 @@ def test_full_udp_streaming_pipeline_device_decode(cfg, wire_order):
 
 
 def test_device_decode_validation():
-    """device_decode requires the pallas method (the i16 radix consumer);
-    anything else must refuse loudly."""
+    """device_decode with a processor override that takes planar input
+    (no wire_input) must refuse loudly."""
     import pytest as _pytest
 
     cfg = tiny_config(m=32, n=16)
     with _pytest.raises(ValueError, match="device_decode"):
-        StreamingExecutor(cfg, transport=None, method="mxu",
-                          device_decode=True)
+        StreamingExecutor(cfg, transport=None, device_decode=True,
+                          processor=lambda planar: (planar, planar))
 
 
 def test_udp_extended_results_reconstruct_multi_elevation_volume(cfg):
@@ -498,7 +495,7 @@ def test_udp_extended_results_reconstruct_multi_elevation_volume(cfg):
     rx_zdr.close()
 
 
-@pytest.mark.parametrize("method", ["mxu", "pallas"])
+@pytest.mark.parametrize("method", ["mxu", "fft"])
 def test_multifeed_consolidation_zero_cross_contamination(cfg, method):
     """VERDICT r2 item 8 / DESIGN.md section 6 consolidation story: one
     processor multiplexes N radar feeds — per-feed ingest threads,

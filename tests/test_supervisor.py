@@ -435,8 +435,8 @@ def test_remote_launcher_full_regroup(tmp_path):
     """VERDICT r3 item 7: the pod claim (supervisor.py module docstring)
     is a tested extension point, not a comment.  A launcher double
     simulating two remote machines drives a FULL regroup: generation 0
-    places rank 0 on tpu-a and rank 1 on tpu-b (host_id keyed), both
-    become ready only after the remote launch latency, machine tpu-b
+    places rank 0 on host-a and rank 1 on host-b (host_id keyed), both
+    become ready only after the remote launch latency, machine host-b
     then loses power post-ready, and generation 1 relaunches THROUGH
     THE SAME LAUNCHER on the surviving machine with the dead rank's
     feeds folded in.  The supervisor never touches subprocess — every
@@ -447,7 +447,7 @@ def test_remote_launcher_full_regroup(tmp_path):
 
     feeds = [FeedSpec(port=21000 + i, checkpoint=tmp_path / f"rf{i}.npz")
              for i in range(2)]
-    fleet = _RemoteFleet(["tpu-a", "tpu-b"], launch_delay_s=0.25)
+    fleet = _RemoteFleet(["host-a", "host-b"], launch_delay_s=0.25)
     sup = Supervisor(feeds, hosts=2, poll_s=0.02, spawn=fleet.spawn,
                      state_file=tmp_path / "remote-state.jsonl")
 
@@ -458,7 +458,7 @@ def test_remote_launcher_full_regroup(tmp_path):
                    and all(h._ready_file.exists() for h in fleet.handles)):
             assert time.monotonic() < deadline
             time.sleep(0.02)
-        fleet.lose_machine("tpu-b")
+        fleet.lose_machine("host-b")
         # wait for the regroup generation's worker, let it finish clean
         while len(fleet.handles) < 3:
             assert time.monotonic() < deadline
@@ -477,7 +477,7 @@ def test_remote_launcher_full_regroup(tmp_path):
     assert out["generations"] == 2
     # placement went through the seam, keyed on host_id, and the
     # regroup landed on the surviving machine
-    assert fleet.placements == [(0, "tpu-a"), (1, "tpu-b"), (0, "tpu-a")]
+    assert fleet.placements == [(0, "host-a"), (1, "host-b"), (0, "host-a")]
     evs = {e["event"]: e for e in sup._events}
     assert evs["regroup"]["to_hosts"] == 1
     assert evs["host_death"]["rc"] == -9
@@ -873,23 +873,24 @@ def test_supervise_regroup_completes(tmp_path):
 
 
 def test_supervise_device_decode_passthrough(tmp_path, capsys):
-    """--device-decode forwards to worker argv (pallas only; a non-pallas
-    request is refused up front rather than via every worker dying rc-2
-    at warmup, which would look like infra flake)."""
+    """--device-decode forwards to worker argv for any formulation; a
+    pulse-shard method the shard body lacks is refused up front rather
+    than via every worker dying rc-2 at warmup, which would look like
+    infra flake."""
     from wrp_tpu import cli
     from wrp_tpu.runtime.supervisor import FeedSpec, Supervisor
 
-    rc = cli.main(["supervise", "--feed-port", "9000",
-                   "--device-decode",        # default method is mxu
+    rc = cli.main(["supervise", "--feed-port", "9000", "--pulse-shard",
+                   "--method", "radix", "--device-decode",
                    "--checkpoint-dir", str(tmp_path / "a")])
     assert rc == 2
-    assert "--method pallas" in capsys.readouterr().err
+    assert "pulse_shard supports method" in capsys.readouterr().err
 
     sup = Supervisor([FeedSpec(port=9000, checkpoint=tmp_path / "f.npz")],
-                     hosts=1, method="pallas",
+                     hosts=1, method="parseval",
                      extra_args=["--device-decode"])
     argv = sup._worker_argv(0, 1, sup.feeds, tmp_path / "r", None)
-    assert "--device-decode" in argv and "pallas" in argv
+    assert "--device-decode" in argv and "parseval" in argv
 
 
 def test_pulse_shard_mode_validation(tmp_path):
@@ -900,10 +901,12 @@ def test_pulse_shard_mode_validation(tmp_path):
         Supervisor([f(0), f(1)], hosts=2, pulse_shard=True)
     with pytest.raises(ValueError, match="fan-out"):
         Supervisor([f(0)], hosts=2, transport="tcp", pulse_shard=True)
-    with pytest.raises(ValueError, match="mxu, fft"):
-        Supervisor([f(0)], hosts=2, method="parseval", pulse_shard=True)
-    # the seq-sharded fused kernel IS a pulse-shard method (r5)
-    Supervisor([f(0)], hosts=2, method="pallas", pulse_shard=True)
+    with pytest.raises(ValueError, match="fft, parseval, mxu"):
+        Supervisor([f(0)], hosts=2, method="radix", pulse_shard=True)
+    with pytest.raises(ValueError, match="fft, parseval, mxu"):
+        Supervisor([f(0)], hosts=2, method="pallas", pulse_shard=True)
+    # the parseval formulation IS a pulse-shard method
+    Supervisor([f(0)], hosts=2, method="parseval", pulse_shard=True)
     # 3 hosts on ONE feed is the POINT of redundant mode, not an error
     Supervisor([f(0)], hosts=3, pulse_shard=True)
 
@@ -975,12 +978,12 @@ def test_pulse_shard_checkpoint_seeding_and_coverage(tmp_path):
 
 @pytest.mark.parametrize("method_args", [
     ["--method", "fft"],
-    # the flagship seq-sharded kernel with on-chip wire decode: the
-    # gen-0 fleet runs `stream --pulse-shard --method pallas
+    # the parseval formulation with the on-device wire decode: the
+    # gen-0 fleet runs `stream --pulse-shard --method parseval
     # --device-decode`; the gen-1 regrouped single host runs the plain
-    # device-decode path — both production configurations (r5)
-    ["--method", "pallas", "--device-decode"],
-], ids=["fft", "pallas-device-decode"])
+    # device-decode path — both production configurations
+    ["--method", "parseval", "--device-decode"],
+], ids=["fft", "parseval-device-decode"])
 def test_supervise_pulse_shard_broadcast_regroup(tmp_path, method_args):
     """End to end: `cli supervise --pulse-shard` runs a 2-host redundant
     fleet on ONE broadcast wire (both workers bind the same port); a
@@ -1052,3 +1055,39 @@ def test_supervise_pulse_shard_broadcast_regroup(tmp_path, method_args):
                         os.kill(w["pid"], signal.SIGKILL)
                     except (OSError, ProcessLookupError):
                         pass
+
+
+@pytest.mark.parametrize("cards", [0, 2])
+def test_supervisor_assigns_one_card_per_worker(tmp_path, cards):
+    """With cards on the machine, worker host_id sees only card host_id
+    (CUDA_VISIBLE_DEVICES), so no two JAX processes open one card; with
+    none (a CPU host) the environment passes through untouched."""
+    from wrp_tpu.runtime.supervisor import FeedSpec, Supervisor
+
+    feeds = [FeedSpec(port=22300 + i, checkpoint=tmp_path / f"c{i}.npz")
+             for i in range(2)]
+    envs = {}
+
+    def spawn(host_id, argv, env, log_file):
+        envs[host_id] = env
+        return _FakeProc("ready_exit0",
+                         Path(argv[argv.index("--ready-file") + 1]))
+
+    sup = Supervisor(feeds, hosts=2, poll_s=0.02, spawn=spawn,
+                     cards=cards, env={"KEEP": "1"})
+    assert sup.run()["ok"]
+    for host_id in (0, 1):
+        if cards:
+            assert envs[host_id]["CUDA_VISIBLE_DEVICES"] == str(host_id)
+            assert envs[host_id]["KEEP"] == "1"
+        else:
+            assert envs[host_id] == {"KEEP": "1"}
+
+
+def test_supervisor_refuses_more_hosts_than_cards(tmp_path):
+    from wrp_tpu.runtime.supervisor import FeedSpec, Supervisor
+
+    feeds = [FeedSpec(port=22400 + i, checkpoint=tmp_path / f"d{i}.npz")
+             for i in range(3)]
+    with pytest.raises(ValueError, match="one process per card"):
+        Supervisor(feeds, hosts=3, cards=2)

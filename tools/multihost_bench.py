@@ -2,7 +2,7 @@
 """Multi-host weak-scaling benchmark (BASELINE.json config 5).
 
 Spawns N processes that form one global jax mesh (gloo-backed virtual CPU
-devices here; the identical code path uses ICI/DCN on a TPU pod slice),
+devices here; the identical code path runs NCCL between cards),
 each feeding its own per-host sector batch — measures aggregate sectors/s
 at 1 host and at N hosts and reports the weak-scaling efficiency.
 
@@ -94,9 +94,7 @@ def main():
     ap.add_argument("--m", type=int, default=256)
     ap.add_argument("--n", type=int, default=128)
     ap.add_argument("--method", default="mxu",
-                    help="mxu | fft | pallas (data-parallel fused kernel) "
-                         "| pallas-seq (A-stage/epilogue kernel pair + "
-                         "transpose collective)")
+                    help="a parallel/sharded.SHARD_METHODS formulation")
     args = ap.parse_args()
 
     import os
@@ -127,7 +125,7 @@ def main():
         "physical_cpus": cpus,
         "shared_cpu_ceiling": round(ceiling, 3),
         "efficiency_vs_ceiling": round(eff / ceiling, 3),
-        "backend": "cpu-gloo (same code path rides ICI/DCN on a pod)",
+        "backend": "cpu-gloo (the same code path runs NCCL between cards)",
     }))
 
 

@@ -1,12 +1,13 @@
 #!/usr/bin/env python
 """Summarise a jax.profiler trace (bench.py --profile DIR) into op-level
 time totals — the nvprof-style per-kernel hot list (SURVEY.md section 6)
-for TPU runs, without needing tensorboard.
+for device runs, without needing tensorboard.
 
 The profiler writes chrome-trace JSON under
-DIR/plugins/profile/<run>/<host>.trace.json.gz; complete events ("ph":"X")
+DIR/plugins/profile/<run>/ (<host>.trace.json.gz, or perfetto_trace.json.gz
+with create_perfetto_trace=True); complete events ("ph":"X")
 carry name + dur (microseconds).  We aggregate wall time per event name,
-per process/"resource" (TensorCore vs host threads), and print the top-N.
+per process/"resource" (device streams vs host threads), and print the top-N.
 
 Usage: python tools/trace_summary.py /tmp/trace_dir [--top 25]
 """
@@ -23,6 +24,8 @@ import sys
 def find_traces(root):
     pats = [
         os.path.join(root, "plugins", "profile", "*", "*.trace.json.gz"),
+        os.path.join(root, "plugins", "profile", "*",
+                     "perfetto_trace.json.gz"),
         os.path.join(root, "**", "*.trace.json.gz"),
         os.path.join(root, "**", "*.trace.json"),
     ]
@@ -42,7 +45,7 @@ def load_events(path):
 
 
 def summarise(events, top=25):
-    # map pid -> process name (e.g. "/device:TPU:0" vs host threads)
+    # map pid -> process name (e.g. "/device:GPU:0" vs host threads)
     pnames = {}
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":

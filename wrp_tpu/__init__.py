@@ -1,6 +1,6 @@
-"""wrp_tpu — TPU-native polarimetric pulse-Doppler weather-radar processing.
+"""wrp_tpu — polarimetric pulse-Doppler weather-radar processing on the GPU.
 
-A from-scratch JAX/XLA/Pallas framework with the full capability surface of
+A from-scratch JAX/XLA framework with the full capability surface of
 the reference CUDA/C++ codebase (rsatrioadi/weather-radar-processing):
 IQ ingest -> Hamming window -> range FFT -> Doppler processing -> matched
 filter -> reflectivity (zdb) and differential reflectivity (zdr), with

@@ -35,7 +35,7 @@ def hamming_coefficients(cfg: RadarConfig) -> np.ndarray:
     c = K_wind / sqrt(p_range * p_doppler) with
     K_wind = -1 / (adc_scale * m * n * sqrt(impedance))   (read.cc:26-27).
     Returned as the full outer-product matrix like the reference; the
-    separable factors are available via `hamming_factors` for the MXU path.
+    separable factors are available via `hamming_factors` for the matmul path.
     """
     wr, wd, c = hamming_factors(cfg)
     return np.outer(wr, wd) * c
@@ -77,7 +77,7 @@ def range_gain(cfg: RadarConfig) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# MXU (DFT-as-matmul) operators.
+# DFT-as-matmul operators.
 #
 # Stages 01-03 of the chain are linear in the IQ matrix X[m, n] up to one
 # complex conjugation, so they fold into two constant matmuls:
@@ -168,8 +168,8 @@ class PipelineConstants:
     ma_taps: np.ndarray        # [ma_count] float
     fft_ma: np.ndarray         # [n] complex
     gain: np.ndarray           # [m/2] float (stage 09 range gain)
-    op_a_half: np.ndarray      # [m/2, m] complex  (MXU path)
-    op_b: np.ndarray           # [n, n] complex    (MXU path)
+    op_a_half: np.ndarray      # [m/2, m] complex  (matmul path)
+    op_b: np.ndarray           # [n, n] complex    (matmul path)
     wd: np.ndarray             # [n] float         (parseval path)
     clip_phasors: np.ndarray   # [4, n] float      (parseval path)
 

@@ -23,6 +23,31 @@ except Exception:  # pragma: no cover - native lib absent
     _native = None
 
 
+def decoder_name() -> str:
+    """Which host decoder runs: "native" (the C++ codec, built from
+    wrp_tpu/native at first use) or "numpy" (the vectorised fallback)."""
+    return "native" if _native is not None else "numpy"
+
+
+def radix_row_order(m: int, radix: int) -> np.ndarray:
+    """Natural row index -> position for the radix-DIT row order: rows
+    in (p, t) order, j = radix*t + p.  The one copy of this permutation
+    (host decode, wire reorder and the device decode all use it)."""
+    return np.concatenate([np.arange(p, m, radix) for p in range(radix)])
+
+
+def pair_lanes(x: np.ndarray, g: int = 2) -> np.ndarray:
+    """[bc, 2, m, n] -> [bc/g, 2, m, g*n]: g consecutive channel-sectors
+    lane-concatenated — the layout decode_iq_i16_grouped emits, for
+    staging and test paths that start from the per-sector layout."""
+    bc, two, m, n = x.shape
+    if bc % g:
+        raise ValueError(f"{bc} channel-sectors do not group by {g}")
+    return np.ascontiguousarray(
+        x.reshape(bc // g, g, two, m, n).transpose(0, 2, 3, 1, 4)
+        .reshape(bc // g, two, m, g * n))
+
+
 def decode_iq(buf: bytes | bytearray | memoryview | np.ndarray,
               cfg: RadarConfig = DEFAULT_CONFIG,
               planar_out: np.ndarray | None = None) -> np.ndarray:
@@ -52,9 +77,9 @@ def decode_iq_i16(buf: bytes | bytearray | memoryview | np.ndarray,
     """Wire bytes -> int16 planar IQ [channels, 2(I/Q), m, n].
 
     The compact device-feed layout: the 14-bit ADC samples ARE int16, so
-    shipping int16 to the device halves host->device bytes and the compute
-    kernel's HBM input read; conversion to f32 happens on-chip (in VMEM for
-    the fused Pallas path)."""
+    shipping int16 to the device halves host->device bytes and the
+    chain's device-memory input read; conversion to f32 happens on the
+    device.  radix > 1 writes the range rows in radix_row_order."""
     m, n, ch = cfg.num_range_cells, cfg.num_pulses, cfg.num_channels
     if _native is not None:
         return _native.decode_iq_i16(buf, m, n, ch, out=planar_out,
@@ -66,8 +91,7 @@ def decode_iq_i16(buf: bytes | bytearray | memoryview | np.ndarray,
         (ch, 2, m, n), np.int16)
     planar = shaped.transpose(2, 3, 0, 1)
     if radix > 1:
-        order = np.concatenate([np.arange(p, m, radix) for p in range(radix)])
-        planar = planar[:, :, order, :]
+        planar = planar[:, :, radix_row_order(m, radix), :]
     np.copyto(out, planar)
     return out
 
@@ -79,14 +103,9 @@ def reorder_wire_rows(buf: bytes | bytearray | memoryview | np.ndarray,
     """RAW wire bytes -> the same bytes with range ROWS in radix-DIT order
     (uint8 [m * n * bps], one contiguous 6 KB-row gather — memcpy speed).
 
-    The wire-FUSED device decode (ops/pallas/fullchain.
-    fused_chain_power_wire) needs its rows in radix order; doing the
-    reorder on the device costs a measured 57 us/sector of chip time
-    (the XLA word-row take, WIRE_AB_r05.json) while on the host it is a
-    row-placement copy — and FREE for v1 per-row-datagram ingest, where
-    reassembly already places each row by index (reference
-    read_single.cc:15 row framing).  Feed the result to a
-    ``wire_order="radix"`` processor.
+    On the host this is a row-placement copy, and free for v1
+    per-row-datagram ingest, where reassembly already places each row
+    by index (reference read_single.cc:15 row framing).
     """
     m, n = cfg.num_range_cells, cfg.num_pulses
     row_bytes = n * cfg.bytes_per_sample
@@ -98,7 +117,7 @@ def reorder_wire_rows(buf: bytes | bytearray | memoryview | np.ndarray,
             return flat.copy()
         np.copyto(out, flat)
         return out
-    order = np.concatenate([np.arange(p, m, radix) for p in range(radix)])
+    order = radix_row_order(m, radix)
     if out is None:
         return rows[order].reshape(-1)
     np.copyto(out.reshape(m, row_bytes), rows[order])
@@ -110,8 +129,7 @@ def decode_iq_i16_grouped(buf, stage: np.ndarray, slot: int, group: int,
                           radix: int = 1) -> None:
     """Decode ONE wire sector directly into a lane-grouped staging
     buffer ``stage[total_cs/group, 2, m, group*n]`` (int16) at batch
-    slot ``slot`` — the pair="pre"/"pre4" kernel input layout
-    (ops/pallas/fullchain.pair_lanes), emitted by the decode pass
+    slot ``slot`` — the pair_lanes layout, emitted by the decode pass
     itself.  Channel-sector ``i = slot*ch + c`` lands in group
     ``i//group``, lane block ``i%group``; with the native codec this
     costs the same as the plain planar emit (identical loops, different

@@ -45,9 +45,8 @@ inline int16_t be16(const uint8_t *p) {
 }
 
 // Destination range row for wire range row r: natural order, or the
-// radix-DIT order of the fused kernel (row j=radix*t+p stored at p*M+t,
-// ops/pallas/fullchain.py radix_row_order) — only the offset formula
-// changes, the cost does not.
+// radix-DIT order (row j=radix*t+p stored at p*M+t, io/codec.py
+// radix_row_order) — only the offset formula changes, the cost does not.
 inline int64_t dest_row(int64_t r, int64_t m, int32_t radix) {
   return radix > 1 ? (r % radix) * (m / radix) + r / radix : r;
 }
@@ -222,8 +221,8 @@ void wrp_decode_iq(const uint8_t *wire, float *out, int64_t m, int64_t n,
 }
 
 // wire BE int16 interleaved -> int16 planar (compact device-feed layout:
-// halves H2D bytes vs float32; the device converts on-chip).  radix > 1
-// additionally writes range rows in radix-DIT order for the fused kernel.
+// halves H2D bytes vs float32; the device converts).  radix > 1
+// additionally writes range rows in radix-DIT order.
 void wrp_decode_iq_i16(const uint8_t *wire, int16_t *out, int64_t m,
                        int64_t n, int64_t ch, int32_t num_threads,
                        int32_t radix) {
@@ -234,9 +233,9 @@ void wrp_decode_iq_i16(const uint8_t *wire, int16_t *out, int64_t m,
 
 // Grouped device-feed emit: scatter ONE wire sector (batch slot `slot`)
 // into a caller-owned staging buffer of lane-grouped channel-sectors
-// stage[total_cs/group][2][m][group*n] (the pair="pre"/"pre4" input of
-// ops/pallas/fullchain.fused_chain_power_radix: channel-sector
-// i = slot*ch + c lands in group i/group, lane block i%group).  Same
+// stage[total_cs/group][2][m][group*n] (the io/codec.py pair_lanes
+// layout: channel-sector i = slot*ch + c lands in group i/group, lane
+// block i%group).  Same
 // single-pass loops as wrp_decode_iq_i16 — only the destination offsets
 // and the row pitch differ, so decode-time grouping costs nothing over
 // the plain planar emit (the claim pair_lanes()' docstring makes,

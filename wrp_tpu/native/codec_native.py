@@ -89,7 +89,7 @@ def decode_iq_i16(wire, m: int, n: int, ch: int,
                   num_threads: int = _DEFAULT_THREADS,
                   radix: int = 1) -> np.ndarray:
     """Wire bytes -> planar int16 [ch, 2, m, n] (compact device feed).
-    radix > 1 writes range rows in radix-DIT order (fused-kernel input)."""
+    radix > 1 writes range rows in radix-DIT order."""
     if out is None:
         out = np.empty((ch, 2, m, n), np.int16)
     else:
@@ -112,7 +112,7 @@ def decode_iq_i16_grouped(wire, m: int, n: int, ch: int,
                           radix: int = 1) -> None:
     """Scatter ONE wire sector into a lane-grouped staging buffer
     stage[total_cs/group, 2, m, group*n] at batch slot `slot` — the
-    pair="pre"/"pre4" device-feed layout, emitted during the decode
+    io/codec.pair_lanes layout, emitted during the decode
     pass itself (same loops as decode_iq_i16; only destination offsets
     change)."""
     if group < 1 or stage.ndim != 4:

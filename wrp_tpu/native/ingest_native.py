@@ -1,7 +1,7 @@
 """ctypes binding for the native UDP sector ingest loop (ingest.cpp).
 
 The loop runs outside the GIL, so sector reassembly (m datagrams) overlaps
-the compute thread's device dispatch — the TPU equivalent of the reference's
+the compute thread's device dispatch — the equivalent of the reference's
 host-ingest/GPU-compute cascade (gpu_1fp_streamcasc.cu:527-737).
 """
 

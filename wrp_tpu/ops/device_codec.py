@@ -1,21 +1,13 @@
 """On-device wire decode: raw interleaved big-endian int16 -> planar i16.
 
-The host-side decoder (io/codec.py, native/codec.cpp) is the end-to-end
-bottleneck of the consolidation design: one SIMD host core decodes
-~1 440 wire sectors/s while one chip processes ~36 000/s, so saturating
-a chip takes ~25 decode cores (DESIGN.md §6).  This module moves the
-decode (byteswap + channel/IQ deinterleave + optional radix row
-reorder) onto the device as six fused per-plane byte-slice passes (one
-contiguous row gather for the radix order, then one strided
-slice+compose pass per channel/IQ plane, stacked) — no transpose op
-anywhere: the host then only reassembles datagrams and memcpys wire
-bytes, and the H2D traffic is unchanged (the wire IS int16:
-12 B/sample either way).
-
-Chip-side decode spends device time a host-decoded feed would not —
-it is a deployment OPTION for host-core-constrained consolidation
-(`bench.py --in-dtype wire` measures exactly what it costs on the
-timed path), not an unconditional win.
+The host-side decoder (io/codec.py, native/codec.cpp) costs host cores
+per sector; a site where host cores, not the card, are scarce can ship
+the raw wire bytes instead and decode on the device inside the chain's
+jit (`stream --device-decode`, SectorProcessor(wire_input=True)).  The
+decode is byteswap + channel/IQ deinterleave (+ optional radix row
+reorder) as six fused per-plane byte-slice passes — no transpose op.
+The H2D traffic is unchanged (the wire IS int16: 12 B/sample either
+way).  `bench.py --in-dtype wire` measures what it costs on the device.
 
 Wire format (reference sector.cpp:52-62, read_single.cc:15): one
 sector = m*n samples x 12 bytes, each sample interleaved big-endian
@@ -29,7 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from ..config import RadarConfig, DEFAULT_CONFIG
-from .pallas.fullchain import radix_row_order
+from ..io.codec import radix_row_order
 
 
 def decode_wire_i16(wire_u8: jax.Array,
@@ -39,15 +31,15 @@ def decode_wire_i16(wire_u8: jax.Array,
     """uint8 [..., m*n*ch*4] wire bytes -> int16 [..., ch, 2, m, n].
 
     Matches io/codec.decode_iq_i16 bit-exactly (big-endian int16
-    deinterleave, optional radix row reorder).  All arithmetic is int32
-    (TPU-native); the data movement is one contiguous row gather (the
-    radix order) plus six strided byte-slice passes — no transpose op.
+    deinterleave, optional radix row reorder).  All arithmetic is int32;
+    the data movement is one contiguous row gather (the radix order)
+    plus six strided byte-slice passes — no transpose op.
 
-    num_pulses overrides cfg's pulse count: the seq-sharded wire path
-    (parallel/sharded.py pallas-seq wire_input) feeds each device only
-    its 1/seq pulse-byte columns, so the per-device decode runs at
-    n/seq — byte layout per row is unchanged (the wire interleaves
-    channels per SAMPLE, so a pulse-column byte slice is self-contained).
+    num_pulses overrides cfg's pulse count: the pulse-sharded wire path
+    (parallel/sharded.py wire_input) feeds each device only its 1/seq
+    pulse-byte columns, so the per-device decode runs at n/seq — byte
+    layout per row is unchanged (the wire interleaves channels per
+    SAMPLE, so a pulse-column byte slice is self-contained).
     """
     m, n, ch = cfg.num_range_cells, cfg.num_pulses, cfg.num_channels
     if num_pulses is not None:
@@ -58,23 +50,15 @@ def decode_wire_i16(wire_u8: jax.Array,
         raise ValueError(
             f"expected uint8 [..., {nbytes}] wire bytes; got "
             f"{wire_u8.dtype} {wire_u8.shape}")
-    # Formulation chosen by an on-chip A/B of seven variants
-    # (tools/decode_ab.py, DECODE_AB_r04.json): per-plane strided BYTE
-    # slices with the int16 compose fused into each slice
-    # (v5_byteslice = this function = v0_current, 156.5/156.9
-    # us/sector), 3.4x the transpose formulation it replaced (v4_i32,
-    # 538.8 us/sector).  A [m, n, ch, 2] -> [ch, 2, m, n] transpose
-    # moves 6-element minor tiles and ran at ~23 GB/s; six fused
-    # slice+compose passes that each read only their own bytes run at
-    # ~80 GB/s effective (read+write of the 6.3 MB sector in 157 us).
+    # Per-plane strided BYTE slices with the int16 compose fused into
+    # each slice: a [m, n, ch, 2] -> [ch, 2, m, n] transpose moves
+    # 6-element minor tiles, while each slice pass reads only its bytes.
     rows = wire_u8.reshape(*lead, m, n * cfg.bytes_per_sample)
     if radix > 1:
-        # the ONE canonical permutation (shared with the kernel plan and,
-        # by parity test, the host decoder) — a drifting copy here would
-        # break the bit-parity contract silently.  Applied to the RAW
-        # byte rows (contiguous 6 KB row gather — bandwidth-friendly)
-        # so the downstream slice passes read already-ordered rows
-        # (itself a measured 1.5x over a post-transpose take).
+        # the ONE canonical permutation (shared with the host decoder) —
+        # a drifting copy here would break the bit-parity contract
+        # silently.  Applied to the RAW byte rows (contiguous 6 KB row
+        # gather) so the downstream slice passes read ordered rows.
         order = radix_row_order(m, radix)
         rows = jnp.take(rows, jnp.asarray(order), axis=len(lead))
     b = rows.reshape(*lead, m, n, ch * 2, 2)
@@ -86,44 +70,3 @@ def decode_wire_i16(wire_u8: jax.Array,
         planes.append(v.astype(jnp.int16))
     planar = jnp.stack(planes, axis=len(lead))   # [..., ch*2, m, n]
     return planar.reshape(*lead, ch, 2, m, n)
-
-
-def wire_words_i32(wire: jax.Array,
-                   cfg: RadarConfig = DEFAULT_CONFIG,
-                   radix: int = 1,
-                   num_pulses: int | None = None) -> jax.Array:
-    """Wire bytes -> [..., m, ch*n] int32 words for the wire-FUSED kernel
-    (ops/pallas/fullchain.fused_chain_power_wire): word ch*j + c of row i
-    is channel c / pulse j's 4 wire bytes viewed little-endian (I in the
-    low 16 bits big-endian, Q in the high 16 — decoded by the kernel's
-    dense i32 bit arithmetic, never a lane compaction).
-
-    Accepts uint8 [..., m*n*bps] raw bytes (one device-side bitcast) or
-    int32 [..., m*n*bps/4] words (the host views its staging buffer as
-    '<i4' — FREE, the recommended production path).  radix applies the
-    canonical row reorder to the word rows (contiguous row gather, the
-    only data movement left on the wire path)."""
-    m, n, ch = cfg.num_range_cells, cfg.num_pulses, cfg.num_channels
-    if num_pulses is not None:
-        n = num_pulses
-    words = m * n * ch
-    lead = wire.shape[:-1]
-    if wire.dtype == jnp.uint8:
-        if wire.shape[-1] != words * 4:
-            raise ValueError(f"expected uint8 [..., {words * 4}] wire "
-                             f"bytes; got {wire.shape}")
-        w32 = jax.lax.bitcast_convert_type(
-            wire.reshape(*lead, words, 4), jnp.int32)
-    elif wire.dtype == jnp.int32:
-        if wire.shape[-1] != words:
-            raise ValueError(f"expected int32 [..., {words}] wire words; "
-                             f"got {wire.shape}")
-        w32 = wire
-    else:
-        raise ValueError(f"wire must be uint8 bytes or int32 words; got "
-                         f"{wire.dtype}")
-    w32 = w32.reshape(*lead, m, n * ch)
-    if radix > 1:
-        order = radix_row_order(m, radix)
-        w32 = jnp.take(w32, jnp.asarray(order), axis=len(lead))
-    return w32

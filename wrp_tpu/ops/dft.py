@@ -1,10 +1,9 @@
-"""MXU-friendly DFT operators: direct matrices and Cooley-Tukey radix split.
+"""Matmul-form DFT operators: direct matrices and Cooley-Tukey radix split.
 
 The direct path (constants.stage1_operators) computes stages 01-04 as two
 dense matmuls — ~400M complex MACs per channel-sector.  This module factors
-each DFT with one Cooley-Tukey split N = N1*N2 (N1 = 128 to match the MXU
-tile), cutting MACs ~3.8x while keeping every contraction on the systolic
-array:
+each DFT with one Cooley-Tukey split N = N1*N2 (N1 = 128), cutting MACs
+~3.8x while keeping every contraction a matmul:
 
   X[k1 + N1*k2] = sum_{i2} [ w_N^{i2*k1} * (sum_{i1} x[N2*i1 + i2]
                   * w_{N1}^{i1*k1}) ] * w_{N2}^{i2*k2}
@@ -80,7 +79,7 @@ class RadixPlan:
 
 
 def _cdot(ar, ai, br, bi, contract, precision):
-    """Complex contraction via four real einsums on the MXU."""
+    """Complex contraction via four real einsums."""
     dot = functools.partial(jnp.einsum, contract, precision=precision)
     return dot(ar, br) - dot(ai, bi), dot(ar, bi) + dot(ai, br)
 

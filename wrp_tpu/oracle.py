@@ -3,7 +3,7 @@
 This is the in-repo ground truth, semantically equivalent to the reference
 fp64 CPU pipeline (/root/reference/read.cc:131-345).  It exists because the
 reference's staged golden inputs for stages 00-03 are missing
-(.MISSING_LARGE_BLOBS), so full-chain validation of the TPU pipelines runs
+(.MISSING_LARGE_BLOBS), so full-chain validation of the device pipelines runs
 against this oracle on synthetic IQ, while stages 05-09 are additionally
 pinned to the committed golden files (in/04abs.altb -> out/08pow.cpu.out ->
 in/09zdb.altb).
@@ -181,3 +181,23 @@ def synthetic_iq(
         im = rng.integers(-8192, 8192, size=(ch, m, n))
         return (re + 1j * im).astype(np.complex128)
     raise ValueError(f"unknown synthetic kind: {kind}")
+
+
+def adversarial_clip_iq(cfg: RadarConfig = DEFAULT_CONFIG,
+                        seed: int = 0) -> np.ndarray:
+    """Integer IQ [channels, m, n] whose Doppler energy sits in the
+    CLIPPED bins (pre-shift k = n/2 - 2) over small noise.  The Parseval
+    closed form n*sum|q|^2 - |clip|^2 then cancels catastrophically, and
+    any dot run below fp32 precision on the clip-bin phasors shows up in
+    the power (compare channel power, not the log-domain products)."""
+    m, n, ch = cfg.num_range_cells, cfg.num_pulses, cfg.num_channels
+    rng = np.random.default_rng(seed)
+    _, wd, _ = C.hamming_factors(cfg)
+    j = np.arange(n)
+    k = n // 2 - 2
+    ph0 = rng.uniform(0, 2 * np.pi, (ch, m, 1))
+    base = np.cos(2 * np.pi * k * j / n + ph0) / wd[None, None, :]
+    adv = (6000 * base / np.abs(base).max()
+           + 1j * rng.integers(-50, 50, (ch, m, n)))
+    return np.round(adv.real) + 1j * np.round(adv.imag)
+

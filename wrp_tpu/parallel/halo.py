@@ -8,14 +8,14 @@ needs each shard's left neighbour's last (ma_count-1) pulse columns:
     conv[j] = sum_k ma[k] * p[(j - k) mod n]
 
 so shard s computes its local columns from [halo from shard s-1 | local],
-with the halo moved over ICI by one ppermute (circular: shard 0 receives
+with the halo moved between devices by one ppermute (circular: shard 0 receives
 from shard S-1, completing the mod-n wrap).  The pulse sum then reduces
 locally and one psum over the seq axis yields the full stage-08 product.
 
 This is the overlap-save pattern: each shard's output depends only on its
 own samples plus a fixed 6-sample (ma_count-1) boundary overlap — the
 communication volume is tiny (6 columns x m/2 rows x 4 B = 12 KB per
-channel-sector) and rides a single nearest-neighbour ICI hop.
+channel-sector) and is a single neighbour-to-neighbour transfer.
 
 Use when the sector batch is too small to fill the mesh data-parallel and
 the transpose's 2 MB-per-sector all_to_all dominates; for the standard

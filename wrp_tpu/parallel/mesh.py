@@ -1,9 +1,10 @@
 """Device-mesh construction for the sharded pipelines.
 
 The reference's only scaling axes were CUDA streams (pipelining, one GPU)
-and the 143x9 sector/elevation loop (SURVEY.md section 2.5).  On TPU the
+and the 143x9 sector/elevation loop (SURVEY.md section 2.5).  Here the
 sector loop becomes the data-parallel mesh axis and the in-sector matrix
-axes become the sequence-parallel axis; collectives ride ICI.
+axes become the sequence-parallel axis.  Every card reaches every other
+at the same rate, so the mesh follows the algorithm alone.
 
 Axes:
   * "data" — sectors/elevations (embarrassingly parallel batch axis)
@@ -30,9 +31,7 @@ def make_mesh(
 ) -> Mesh:
     """Mesh over `devices` (default: all) with shape [data, seq].
 
-    data=None takes every remaining device.  On multi-host platforms the
-    default device order already places ICI neighbours adjacently, so the
-    seq axis (which carries the all_to_all) stays on-ring.
+    data=None takes every remaining device.
     """
     devs = list(devices if devices is not None else jax.devices())
     if data is None:
@@ -50,17 +49,6 @@ def iq_sharding(mesh: Mesh) -> NamedSharding:
     """Planar IQ [batch, channel, 2, m, n]: batch over data, pulses over
     seq."""
     return NamedSharding(mesh, P(DATA_AXIS, None, None, None, SEQ_AXIS))
-
-
-def iq_sharding_flat(mesh: Mesh) -> NamedSharding:
-    """Planar IQ [batch, channel, 2, m, n]: batch over EVERY mesh axis.
-
-    The layout for the fused-kernel (pallas) sharded path: sectors are
-    embarrassingly parallel (the reference's own sector loop,
-    rpv2.cu:572-579), so all devices — including any seq-axis ones —
-    take batch shards and run the whole chain locally with zero
-    collectives."""
-    return NamedSharding(mesh, P((DATA_AXIS, SEQ_AXIS), None, None, None, None))
 
 
 def result_sharding(mesh: Mesh) -> NamedSharding:

@@ -12,11 +12,14 @@ processor -> consumer dataflow of the reference (section 1) sharded H ways.
 Communication: batch assembly uses jax.make_array_from_process_local_data
 (no cross-host data movement — each host's shard stays on its devices);
 the compute step is the shard_map pipeline (sharded.py), whose collectives
-(all_to_all / all_gather for the optional in-sector seq split) ride ICI.
-DCN only carries the jax.distributed control plane.
+(all_to_all / all_gather for the optional in-sector seq split) XLA hands
+to NCCL on GPUs.
 
-Tested with a real 2-process gloo-backed CPU mesh in
-tests/test_multihost.py; on TPU pods the same code path uses ICI/DCN.
+One process per card: a JAX process reserves most of every card it
+opens, so a launcher that starts several processes on one machine gives
+each its own card (device.card_env — `cli supervise` and chip_smoke.py
+do).  Tested with a real 2-process gloo-backed CPU mesh in
+tests/test_multihost.py.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding
 
 from ..config import RadarConfig, DEFAULT_CONFIG
-from .mesh import DATA_AXIS, make_mesh
+from ..pipeline import DEFAULT_METHOD
+from .mesh import DATA_AXIS, SEQ_AXIS, make_mesh
 from .sharded import build_sharded_processor
 
 
@@ -48,6 +52,8 @@ def init_distributed(coordinator: str, num_processes: int,
     """Join the jax.distributed world (idempotent).
 
     coordinator: "host:port" of process 0.  Call before any other jax use.
+    The process uses the cards its environment makes visible
+    (CUDA_VISIBLE_DEVICES, set per process by its launcher).
     """
     from jax._src import distributed as _dist
 
@@ -80,7 +86,7 @@ class MultiHostProcessor:
     @classmethod
     def build(cls, cfg: RadarConfig = DEFAULT_CONFIG,
               per_host_batch: int = 16, seq: int = 1,
-              method: str = "mxu") -> "MultiHostProcessor":
+              method: str = DEFAULT_METHOD) -> "MultiHostProcessor":
         mesh = make_mesh(seq=seq)
         data_size = mesh.shape[DATA_AXIS]
         procs = jax.process_count()
@@ -130,7 +136,7 @@ class PulseShardedProcessor:
     H hosts slices its 1/H share of the pulse columns from the same wire
     bytes and the transpose-FFT seq sharding (sharded.py:38-104) stitches
     the spectra back together with an all_to_all + all_gather that CROSS
-    the host boundary (DCN/gloo; ICI on a pod slice).  Use it to scale a
+    the host boundary (NCCL between cards, gloo on CPU).  Use it to scale a
     single sector's latency when one host's chip is the bottleneck.
 
     Unlike the data-parallel mode, the per-step program genuinely BLOCKS
@@ -159,23 +165,17 @@ class PulseShardedProcessor:
 
     @classmethod
     def build(cls, cfg: RadarConfig = DEFAULT_CONFIG, batch: int = 16,
-              method: str = "mxu",
+              method: str = DEFAULT_METHOD,
               device_decode: bool = False) -> "PulseShardedProcessor":
-        """method: "mxu" | "fft" (transpose-FFT jnp paths) | "pallas"
-        (the flagship fused kernel, seq-sharded — A-stage kernel per
-        pulse slice, cross-host all_to_all, Parseval-epilogue kernel;
-        parallel/sharded.py pallas-seq).
+        """method: one of sharded.SHARD_METHODS (transpose-FFT seq
+        sharding: stage A per pulse slice, cross-host all_to_all, pulse
+        stages per range-row slice).
 
-        device_decode (pallas only): step_local takes raw wire BYTES
-        [batch, sector_nbytes_wire] uint8; each host slices its 1/N
-        pulse-byte columns and the decode runs on-chip inside the step
+        device_decode: step_local takes raw wire BYTES [batch,
+        sector_nbytes_wire] uint8; each host slices its 1/N pulse-byte
+        columns and the decode runs on the device inside the step
         (ops/device_codec) — the pulse-shard analogue of
         `stream --device-decode`, for host-core-constrained fleets."""
-        from .mesh import SEQ_AXIS
-
-        if device_decode and method != "pallas":
-            raise ValueError("device_decode (on-chip wire decode) requires "
-                             "method='pallas'")
         procs = jax.process_count()
         local = jax.local_device_count()
         # jax.devices() is process-major: reshape(P, L).T puts process
@@ -185,13 +185,8 @@ class PulseShardedProcessor:
         if batch % local:
             raise ValueError(
                 f"batch {batch} must divide by local devices ({local})")
-        # "pallas" here means the seq-sharded fused-kernel formulation:
-        # pulse sharding is this processor's entire point, so the pure
-        # data-parallel pallas layout (which ignores the seq axis) would
-        # be the wrong sharding contract
-        build_method = "pallas-seq" if method == "pallas" else method
         step, in_sharding = build_sharded_processor(
-            cfg, mesh, method=build_method, wire_input=device_decode)
+            cfg, mesh, method=method, wire_input=device_decode)
         c, m, n = cfg.sector_shape
         pid = jax.process_index()
         n_loc = n // procs
@@ -210,7 +205,7 @@ class PulseShardedProcessor:
         With device_decode the input is instead the raw wire bytes
         [batch, sector_nbytes_wire] uint8 straight off the broadcast
         wire; this host's pulse-byte columns are sliced here and decoded
-        on-chip inside the step.
+        on the device inside the step.
 
         labels: optional [batch, 2] int32 (sector, elevation) rows, -1
         padding.  When given, batch alignment is verified ACROSS HOSTS

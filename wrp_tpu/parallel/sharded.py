@@ -1,6 +1,6 @@
-"""Multi-chip sharded pipeline via shard_map + ICI collectives.
+"""Multi-device sharded pipeline via shard_map + collectives.
 
-Parallel decomposition (TPU-native; nothing like it exists in the single-GPU
+Parallel decomposition (nothing like it exists in the single-GPU
 reference — see SURVEY.md section 2.5 for the mapping):
 
 * data axis  — sectors are independent problems (143 x 9 per volume scan);
@@ -8,14 +8,15 @@ reference — see SURVEY.md section 2.5 for the mapping):
 
 * seq axis   — inside a sector the chain alternates between "needs the full
   range axis" (window + range FFT / the A matmul) and "needs the full pulse
-  axis" (Doppler + matched filter / the B matmul).  We use the classic
-  distributed-FFT transpose: run stage A with pulses sharded, one
-  all_to_all over ICI to re-shard onto range bins, run the pulse stages
-  locally, then a small all_gather of the [m/2] products.
+  axis" (Doppler + matched filter / the B matmul / the Parseval epilogue).
+  We use the classic distributed-FFT transpose: run stage A with pulses
+  sharded, one all_to_all to re-shard onto range bins, run the pulse
+  stages locally, then a small all_gather of the [m/2] products.
 
 Per sector-shard the all_to_all moves m/2 x n/seq complex64 (2 MB at the
-default geometry) — at ICI bandwidths this overlaps well under XLA's
-latency-hiding scheduler.
+default geometry); on GPUs XLA hands the collectives to NCCL, and every
+card reaches every other at the same rate, so the mesh follows the
+algorithm alone.
 """
 
 from __future__ import annotations
@@ -27,12 +28,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import RadarConfig, DEFAULT_CONFIG
 from ..constants import PipelineConstants
 from .. import pipeline
-from .mesh import DATA_AXIS, SEQ_AXIS, iq_sharding, iq_sharding_flat
+from .mesh import DATA_AXIS, SEQ_AXIS, iq_sharding
+
+#: Formulations the transpose body implements.
+SHARD_METHODS = ("fft", "parseval", "mxu")
 
 
 def _shard_body(
@@ -41,19 +45,32 @@ def _shard_body(
     cfg: RadarConfig,
     method: str,
     seq_size: int,
+    precision,
+    wire_input: bool = False,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Per-device body: planar iq [b_loc, C, 2, m, n_loc] float32 ->
-    (zdb, zdr) [b_loc, m/2].  All-real dataflow (complex only transiently
-    inside the fft method)."""
+    """Per-device body: planar iq [b_loc, C, 2, m, n_loc] (float32 or
+    int16) -> (zdb, zdr) [b_loc, m/2].  With wire_input the local block
+    is raw wire bytes [b_loc, m, n_loc*bps] uint8 — this device's
+    pulse-byte columns — decoded here (ops/device_codec).  All-real
+    dataflow (complex only transiently inside the fft method)."""
     m, n = cfg.num_range_cells, cfg.num_pulses
     n_loc = n // seq_size
-    xr = iq[:, :, 0]
-    xi = iq[:, :, 1]
+    if wire_input:
+        from ..ops.device_codec import decode_wire_i16
 
-    if method == "mxu":
+        iq = decode_wire_i16(iq.reshape(iq.shape[0], -1), cfg,
+                             num_pulses=n_loc)
+    xr = iq[:, :, 0].astype(jnp.float32)
+    xi = iq[:, :, 1].astype(jnp.float32)
+
+    if method in ("mxu", "parseval"):
         ar = jnp.asarray(np.ascontiguousarray(consts.op_a_half.real))
         ai = jnp.asarray(np.ascontiguousarray(consts.op_a_half.imag))
-        yr, yi = pipeline._rmatmul(ar, ai, xr, xi, lax.Precision.HIGHEST)
+        if method == "parseval":
+            yr, yi = pipeline._rmatmul_gauss(ar, ai, ar + ai, xr, xi,
+                                             precision)
+        else:
+            yr, yi = pipeline._rmatmul(ar, ai, xr, xi, precision)
         y = jnp.stack([yr, yi], axis=2)                   # [b, C, 2, m/2, n_loc]
     elif method == "fft":
         # Window: range factor is local-full; pulse factor needs this
@@ -70,30 +87,35 @@ def _shard_body(
         x = x[..., : m // 2, :]                           # stage-04 crop early
         y = jnp.stack([jnp.real(x), jnp.imag(x)], axis=2)
     else:
-        raise ValueError(method)
+        raise ValueError(f"unknown shard method {method!r}: use one of "
+                         f"{SHARD_METHODS}")
 
     if seq_size > 1:
         # transpose: sharded-on-pulses -> sharded-on-range-bins
         y = lax.all_to_all(y, SEQ_AXIS, split_axis=3, concat_axis=4, tiled=True)
         # y: [b, C, 2, (m/2)/seq, n]
 
-    if method == "mxu":
-        br = jnp.asarray(np.ascontiguousarray(consts.op_b.real))
-        bi = jnp.asarray(np.ascontiguousarray(consts.op_b.imag))
-        zr, zi = pipeline._rmatmul(y[:, :, 0], y[:, :, 1], br, bi,
-                                   lax.Precision.HIGHEST)
-        p = zr * zr + zi * zi
+    if method == "parseval":
+        pow_loc = pipeline.stage_b_parseval(
+            y[:, :, 0], y[:, :, 1], jnp.asarray(consts.wd),
+            jnp.asarray(consts.clip_phasors), precision)
     else:
-        yc = lax.complex(y[:, :, 0], y[:, :, 1])
-        mean = jnp.mean(yc, axis=-1, keepdims=True)
-        z = jnp.conj(yc - mean)
-        z = jnp.fft.fft(z, axis=-1)
-        z = jnp.conj(jnp.roll(z, n // 2, axis=-1))
-        z = z.at[..., n - 2 :].set(0.0)
-        p = jnp.real(z) ** 2 + jnp.imag(z) ** 2
-
-    conv = pipeline.matched_filter_direct(p, consts.ma_taps)
-    pow_loc = jnp.sum(conv, axis=-1)                      # [b, C, (m/2)/seq]
+        if method == "mxu":
+            br = jnp.asarray(np.ascontiguousarray(consts.op_b.real))
+            bi = jnp.asarray(np.ascontiguousarray(consts.op_b.imag))
+            zr, zi = pipeline._rmatmul(y[:, :, 0], y[:, :, 1], br, bi,
+                                       precision)
+            p = zr * zr + zi * zi
+        else:
+            yc = lax.complex(y[:, :, 0], y[:, :, 1])
+            mean = jnp.mean(yc, axis=-1, keepdims=True)
+            z = jnp.conj(yc - mean)
+            z = jnp.fft.fft(z, axis=-1)
+            z = jnp.conj(jnp.roll(z, n // 2, axis=-1))
+            z = z.at[..., n - 2 :].set(0.0)
+            p = jnp.real(z) ** 2 + jnp.imag(z) ** 2
+        conv = pipeline.matched_filter_direct(p, consts.ma_taps)
+        pow_loc = jnp.sum(conv, axis=-1)                  # [b, C, (m/2)/seq]
 
     if seq_size > 1:
         pow_all = lax.all_gather(pow_loc, SEQ_AXIS, axis=2, tiled=True)
@@ -107,170 +129,45 @@ def _shard_body(
 def build_sharded_processor(
     cfg: RadarConfig = DEFAULT_CONFIG,
     mesh: Mesh | None = None,
-    method: str = "mxu",
+    method: str = pipeline.DEFAULT_METHOD,
     wire_input: bool = False,
+    precision: str | None = None,
 ):
     """Returns (step, in_sharding): `step(iq_planar[B, C, 2, m, n]) ->
     (zdb, zdr)`, jit-compiled over the mesh.  Use `shard_batch(iq, mesh,
     in_sharding)` to lay out the input.
 
-    method="mxu"|"fft": transpose-FFT seq sharding — B must divide by the
-    data-axis size; n and m/2 by the seq-axis size.
-    method="pallas": the fused flagship kernel, pure data-parallel over
-    every mesh device — B must divide by the total device count.
-    method="pallas-seq": the flagship kernel seq-sharded over pulses
-    (A-stage kernel per pulse slice, all_to_all, Parseval-epilogue kernel
-    per range-row slice) — same divisibility rules as mxu/fft, same
-    latency-scaling axis, pallas throughput.  wire_input=True (pallas-seq
-    only) takes raw wire BYTES [B, m, n*bps] uint8 (pulse-byte columns
-    sharded over seq) and decodes on-device — the --device-decode
-    deployment option under pulse sharding.
+    method: one of SHARD_METHODS, transpose-FFT seq sharding — B must
+    divide by the data-axis size; n and m/2 by the seq-axis size.  A
+    data x 1 mesh is pure data-parallel (the all_to_all degenerates
+    away).  precision: a pipeline.PRECISIONS key (default: the
+    platform's).  wire_input=True takes raw wire BYTES [B, m, n*bps]
+    uint8 with the pulse-byte columns sharded over seq; each device
+    decodes its slice on-device — the --device-decode deployment option
+    under pulse sharding.
     """
     if mesh is None:
         from .mesh import make_mesh
 
         mesh = make_mesh()
-    if wire_input and method != "pallas-seq":
-        raise ValueError("wire_input is the pallas-seq on-device decode; "
-                         f"method {method!r} takes planar input")
-    if method == "pallas":
-        return _build_pallas_sharded(cfg, mesh)
-    if method == "pallas-seq":
-        return _build_pallas_seq_sharded(cfg, mesh, wire_input=wire_input)
     seq_size = mesh.shape[SEQ_AXIS]
     if cfg.num_pulses % seq_size or (cfg.num_range_cells // 2) % seq_size:
         raise ValueError(
             f"n={cfg.num_pulses} and m/2={cfg.num_range_cells // 2} must "
             f"divide by seq={seq_size}"
         )
+    if method not in SHARD_METHODS:
+        raise ValueError(f"unknown shard method {method!r}: use one of "
+                         f"{SHARD_METHODS}")
     consts = PipelineConstants.build(cfg)
+    prec = pipeline.PRECISIONS[
+        precision or pipeline.precision_for(mesh.devices.flat[0].platform)]
 
     body = functools.partial(
-        _shard_body, consts=consts, cfg=cfg, method=method, seq_size=seq_size
+        _shard_body, consts=consts, cfg=cfg, method=method,
+        seq_size=seq_size, precision=prec, wire_input=wire_input,
     )
-    sharded = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=P(DATA_AXIS, None, None, None, SEQ_AXIS),
-        out_specs=(P(DATA_AXIS, None), P(DATA_AXIS, None)),
-        # Outputs are seq-replicated by construction (all_gather of the
-        # final [m/2] products); the static VMA tracker can't prove it.
-        check_vma=False,
-    )
-    step = jax.jit(sharded)
-    return step, iq_sharding(mesh)
-
-
-def _build_pallas_sharded(cfg: RadarConfig, mesh: Mesh):
-    """The flagship fused Pallas kernel under shard_map.
-
-    Sectors are independent problems (the reference's sector loop,
-    rpv2.cu:572-579), so the kernel scales pure data-parallel: the batch
-    axis is sharded over EVERY mesh device (data and seq axes flattened)
-    and each device runs the full fused chain on its local sectors — zero
-    collectives, perfect weak scaling.  B must divide by the total device
-    count.  Off-TPU the kernel runs in interpret mode (tests/dryrun)."""
-    from ..ops.pallas.fullchain import build_pallas_processor, use_interpret
-
-    consts = PipelineConstants.build(cfg)
-    interpret = use_interpret()
-    power_fn = build_pallas_processor(consts, interpret=interpret)
-    gain = jnp.asarray(consts.gain)
-
-    def body(iq_planar):
-        pow_all = power_fn(iq_planar)
-        return pipeline.stage09_10_products(pow_all[:, 0], pow_all[:, 1],
-                                            gain)
-
-    batch_axes = (DATA_AXIS, SEQ_AXIS)
-    sharded = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=P(batch_axes, None, None, None, None),
-        out_specs=(P(batch_axes, None), P(batch_axes, None)),
-        # pallas_call's out_shape carries no varying-mesh-axes annotation;
-        # the body is trivially per-shard (no collectives), so the static
-        # VMA check adds nothing here.
-        check_vma=False,
-    )
-    return jax.jit(sharded), iq_sharding_flat(mesh)
-
-
-def _build_pallas_seq_sharded(cfg: RadarConfig, mesh: Mesh,
-                              wire_input: bool = False):
-    """The flagship fused kernel, seq-sharded over pulses.
-
-    The fused chain factors at exactly one point: the radix contraction
-    (windowed half-spectrum range DFT) is pulse-column-independent while
-    the Parseval epilogue is range-row-independent.  So each seq device
-    runs the A-stage kernel on its [m, n/seq] pulse slice, ONE all_to_all
-    re-shards the [m/2, n/seq] spectra onto [m/2 / seq, n] full rows (the
-    same transpose collective as the mxu path), a small epilogue kernel
-    finishes each row shard VMEM-resident, and an all_gather of the tiny
-    [m/2 / seq] power slices replicates the products.  Identical math to
-    the single-chip kernel (both call _radix_contract and the same
-    epilogue formulation), so parity is at f32-reassociation level.
-
-    wire_input=True: the step takes raw wire bytes [B, m, n*bps] uint8
-    with the pulse-byte columns sharded over seq; each device decodes its
-    own slice on-chip (ops/device_codec formulation) before the A-stage —
-    the pulse-shard analogue of `stream --device-decode`."""
-    from ..ops.pallas.fullchain import (
-        fused_chain_astage, parseval_rows_power, radix_for, radix_plan_host,
-        radix_row_order, use_interpret)
-
-    seq_size = mesh.shape[SEQ_AXIS]
-    m, n = cfg.num_range_cells, cfg.num_pulses
-    mh = m // 2
-    if n % seq_size or mh % seq_size:
-        raise ValueError(
-            f"n={n} and m/2={mh} must divide by seq={seq_size}")
-    radix = radix_for(m)
-    if radix < 2:
-        raise ValueError(
-            f"pallas-seq needs the radix kernel plan (m={m} supports "
-            "radix 1 only) — use method='mxu' at this geometry")
-    consts = PipelineConstants.build(cfg)
-    a_np, fac = radix_plan_host(consts, radix)
-    a_radix = jnp.asarray(a_np)
-    order = jnp.asarray(radix_row_order(m, radix))
-    wd = jnp.asarray(consts.wd)
-    ph = jnp.asarray(consts.clip_phasors)
-    gain = jnp.asarray(consts.gain)
-    interpret = use_interpret()
-    n_loc = n // seq_size
-
-    def body(x_loc):
-        if wire_input:
-            from ..ops.device_codec import decode_wire_i16
-
-            # [b, m, n_loc*bps] u8 -> [b, C, 2, m, n_loc] int16; the
-            # radix row reorder rides the decode's byte-row gather (same
-            # trick as the single-chip wire path) so no planar take runs
-            x_loc = decode_wire_i16(
-                x_loc.reshape(x_loc.shape[0], -1), cfg, radix=radix,
-                num_pulses=n_loc)
-        b, c, two, m_, w = x_loc.shape
-        x = x_loc.reshape(b * c, two, m_, w)
-        if not wire_input:
-            x = jnp.take(x, order, axis=2)
-        y = fused_chain_astage(x, a_radix, fac, interpret=interpret)
-        if seq_size > 1:
-            # pulse-sharded spectra -> range-row-sharded full-pulse rows
-            y = lax.all_to_all(y, SEQ_AXIS, split_axis=2, concat_axis=3,
-                               tiled=True)
-        p_loc = parseval_rows_power(y, wd, ph, interpret=interpret)
-        p_loc = p_loc.reshape(b, c, mh // seq_size)
-        if seq_size > 1:
-            pow_all = lax.all_gather(p_loc, SEQ_AXIS, axis=2, tiled=True)
-        else:
-            pow_all = p_loc
-        return pipeline.stage09_10_products(pow_all[:, 0], pow_all[:, 1],
-                                            gain)
-
     if wire_input:
-        from jax.sharding import NamedSharding
-
         in_spec = P(DATA_AXIS, None, SEQ_AXIS)
         in_sharding = NamedSharding(mesh, in_spec)
     else:
@@ -281,11 +178,12 @@ def _build_pallas_seq_sharded(cfg: RadarConfig, mesh: Mesh,
         mesh=mesh,
         in_specs=in_spec,
         out_specs=(P(DATA_AXIS, None), P(DATA_AXIS, None)),
-        # same VMA story as the mxu path: outputs are seq-replicated by
-        # the final all_gather, which the static tracker can't prove
+        # Outputs are seq-replicated by construction (all_gather of the
+        # final [m/2] products); the static VMA tracker can't prove it.
         check_vma=False,
     )
-    return jax.jit(sharded), in_sharding
+    step = jax.jit(sharded)
+    return step, in_sharding
 
 
 def shard_batch(iq: np.ndarray, mesh: Mesh,
@@ -294,8 +192,7 @@ def shard_batch(iq: np.ndarray, mesh: Mesh,
 
     Accepts complex [B, C, m, n] (converted to planar host-side) or planar
     float32 [B, C, 2, m, n].  `sharding` overrides the default transpose-FFT
-    layout (pass the in_sharding returned by build_sharded_processor, e.g.
-    the flat data-parallel layout of the pallas path)."""
+    layout (pass the in_sharding returned by build_sharded_processor)."""
     if np.iscomplexobj(iq):
         iq = pipeline.to_planar(np.asarray(iq))
     return jax.device_put(iq, sharding if sharding is not None

@@ -1,34 +1,32 @@
-"""TPU-native implementation of the 11-stage polarimetric radar chain.
+"""The 11-stage polarimetric radar chain as compiled XLA programs.
 
-Five interchangeable compute paths, all pure functions over a batch of
+Four interchangeable formulations, all pure functions over a batch of
 sectors (jit once, vmap-free — every stage broadcasts over leading axes),
 all validated against the fp64 oracle and the reference goldens:
 
 * ``method="fft"``  — direct XLA formulation: window multiply, two batched
-  ``jnp.fft.fft`` calls, fused elementwise stages.  Mirrors the reference
-  chain stage-for-stage (read.cc:131-345) and produces every intermediate
-  product for golden-parity tests.
+  ``jnp.fft.fft`` calls (cuFFT on the GPU), fused elementwise stages.
+  Mirrors the reference chain stage-for-stage (read.cc:131-345) and
+  produces every intermediate product for golden-parity tests.
 
-* ``method="mxu"``  — the MXU formulation: stages 01-04 are linear in the
-  IQ matrix up to conjugation, so they collapse into two constant complex
-  matmuls ``A_half @ X @ B`` (see constants.stage1_operators) that run on
-  the systolic array, followed by a 7-tap circular convolution and
-  reductions on the VPU.  This is not a port of anything in the reference —
-  it is the natural TPU mapping (the reference's own scratch experiment
-  examples/matrixmul.cu:13-48 hints at the outer-product form).
+* ``method="mxu"``  — the dense-matmul formulation: stages 01-04 are
+  linear in the IQ matrix up to conjugation, so they collapse into two
+  constant complex matmuls ``A_half @ X @ B`` (see
+  constants.stage1_operators), followed by a 7-tap circular convolution
+  and reductions.  The reference's own scratch experiment
+  examples/matrixmul.cu:13-48 hints at the outer-product form.
 
 * ``method="parseval"`` — the B matmul and conv collapse into a closed
   form by Parseval (constants.parseval_vectors); the A matmul runs in
   Gauss 3-multiply form.
 
-* ``method="pallas"`` — the flagship: the whole chain in ONE fused Pallas
-  kernel with a radix-8 DIT range DFT (ops/pallas/fullchain.py).
-
 * ``method="radix"`` — Cooley-Tukey split DFTs as XLA einsums
-  (ops/dft.py); kept as the measured-slower-than-mxu data point (the
-  layout shuffles are HBM-bound outside a fused kernel).
+  (ops/dft.py).
 
-See DESIGN.md for the derivations and the measured ladder.
+``DEFAULT_METHOD`` is the formulation measured fastest on the GPU within
+the oracle tolerance (PERF.md, route table); ``PRECISION_BY_PLATFORM``
+names the dot precision each platform runs.  See DESIGN.md for the
+derivations.
 
 The matched filter (stages 05-07) is a circular convolution; we compute it
 directly with 7 shifted fused multiply-adds instead of FFT->multiply->IFFT
@@ -36,8 +34,8 @@ directly with 7 shifted fused multiply-adds instead of FFT->multiply->IFFT
 spectral form is kept as ``matched_filter_spectral`` for parity testing.
 
 Dtype policy: complex64/float32 throughout — accuracy is the contract
-(BASELINE.md), bfloat16 only inside MXU passes via precision=HIGHEST
-(bf16x6 accumulation), which keeps ~fp32 end-to-end error.
+(BASELINE.md).  Every dot names its precision explicitly, so none runs
+in TF32 unless asked to.
 """
 
 from __future__ import annotations
@@ -86,7 +84,7 @@ def stage04_power(x: Array) -> Array:
 def matched_filter_direct(p: Array, ma_taps: Array) -> Array:
     """Stages 05-07 as an explicit circular convolution along the pulse
     axis: conv[j] = sum_k ma[k] * p[(j - k) mod n].  XLA fuses the 7
-    roll+FMA passes into one VPU sweep."""
+    roll+FMA passes into one elementwise sweep."""
     taps = np.asarray(ma_taps)
     out = taps[0] * p
     for k in range(1, taps.shape[0]):
@@ -112,9 +110,8 @@ def stage09_10_products(pow_hh: Array, pow_vv: Array, gain: Array):
     # zdr as log of the power ratio, not difference of logs: identical in
     # exact arithmetic (read.cc:343) but far better conditioned in fp32 —
     # hh/vv are close, and subtracting two ~2e-6-absolute-error device logs
-    # leaves a catastrophically cancelled small number (measured 4e-4 rel
-    # L2 on TPU vs 1e-6 for the ratio form).  inf/nan edge semantics match:
-    # vv=0 -> +inf, hh=vv=0 -> nan either way.
+    # leaves a catastrophically cancelled small number.  inf/nan edge
+    # semantics match: vv=0 -> +inf, hh=vv=0 -> nan either way.
     zdr = 10.0 * log10(pow_hh / pow_vv)
     return zdb, zdr
 
@@ -124,24 +121,21 @@ def log10(x: Array) -> Array:
 
 
 # --------------------------------------------------------------------------
-# MXU path: stages 01-04 as two complex matmuls.
+# Matmul path: stages 01-04 as two complex matmuls.
 # --------------------------------------------------------------------------
 
 
 def _rmatmul(ar, ai, br, bi, precision):
-    """(ar+i*ai) @ (br+i*bi) via four real MXU passes with controlled
-    precision.  Explicit real decomposition keeps the contraction on the
-    systolic array for any backend and makes the precision knob apply to
-    every pass.  It also keeps the whole device dataflow real-valued,
-    which matters in practice: complex64 host<->device transfer is not
-    supported on all TPU runtimes (and the wire codec produces planar
-    I/Q anyway)."""
+    """(ar+i*ai) @ (br+i*bi) via four real matmuls with controlled
+    precision.  The explicit real decomposition makes the precision knob
+    apply to every pass and keeps the device dataflow real-valued (the
+    wire codec produces planar I/Q anyway)."""
     dot = functools.partial(jnp.matmul, precision=precision)
     return dot(ar, br) - dot(ai, bi), dot(ar, bi) + dot(ai, br)
 
 
 def _rmatmul_gauss(ar, ai, asum, br, bi, precision):
-    """Gauss/Karatsuba complex matmul: 3 real MXU passes instead of 4.
+    """Gauss/Karatsuba complex matmul: 3 real matmuls instead of 4.
 
     (ar + i ai)(br + i bi) with m1 = ar br, m2 = ai bi,
     m3 = (ar + ai)(br + bi); real = m1 - m2, imag = m3 - m1 - m2.
@@ -164,7 +158,7 @@ def stage_b_parseval(yr: Array, yi: Array, wd: Array, phasors: Array,
         pow[i] = n * sum_j |q_ij - qbar_i|^2
                  - |q_i . f_k1|^2 - |q_i . f_k2|^2          (q = y * w_d)
 
-    i.e. one fused VPU sweep over Y plus a [*, n] @ [n, 4] skinny matmul
+    i.e. one fused elementwise sweep over Y plus a [*, n] @ [n, 4] skinny matmul
     for the two clipped Doppler bins — no [n, n] matmul, no conv pass.
     (sum(ma_taps) == 1 exactly, so the matched-filter fold factor is 1.)
     The mean is subtracted *before* the clip-bin dot products (f_k is
@@ -231,7 +225,7 @@ def channel_power_planar(
 
     The planar form is the device-facing API: no complex arrays cross the
     host<->device boundary, and the mxu path never materialises complex at
-    all (pure real MXU/VPU dataflow)."""
+    all (pure real dataflow)."""
     if method == "fft":
         x = jax.lax.complex(xr, xi)
         x = stage01_window(x, jnp.asarray(consts.hamming, xr.dtype))
@@ -261,7 +255,7 @@ def channel_power_planar(
         conv = matched_filter_direct(p, consts.ma_taps)
     elif matched_filter == "fold":
         # sum-preserving identity of the circular convolution; see
-        # _process_planar_jit for the derivation and caveats.
+        # _power_planar_jit for the derivation and caveats.
         return stage08_pulse_sum(p) * float(np.sum(consts.ma_taps))
     elif matched_filter == "spectral":
         conv = matched_filter_spectral(p, jnp.asarray(consts.fft_ma))
@@ -343,39 +337,60 @@ def all_stages(
 # --------------------------------------------------------------------------
 
 
-#: Named dot-precision policies.  "bf16x3" (3 bf16 MXU passes, fp32
-#: accumulation) measures within 1.5x of the fp64 oracle error of
-#: "highest" (6 passes) on the full chain while being ~20% faster; it is
-#: the TPU default.  CPU backends may not implement the algorithm presets,
-#: so "highest" is the portable default.
+#: Named dot-precision policies, each passed explicitly to every dot.
+#: "highest" is full fp32; "bf16x3"/"bf16x6" split each fp32 operand
+#: into bf16 parts and run 3 or 6 bf16 products with fp32 accumulation
+#: (tensor cores on the GPU); "tf32" is one TF32 product, ~3 decimal
+#: digits, kept only so the route table can show what it costs.
 PRECISIONS = {
     "highest": jax.lax.Precision.HIGHEST,
-    "default": jax.lax.Precision.DEFAULT,
     "bf16x3": jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3,
     "bf16x6": jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X6,
+    "tf32": jax.lax.DotAlgorithmPreset.TF32_TF32_F32,
 }
 
+#: The formulations SectorProcessor runs (module docstring).
+METHODS = ("fft", "parseval", "radix", "mxu")
 
-def default_precision_name() -> str:
-    return "bf16x3" if jax.default_backend() == "tpu" else "highest"
+#: The flagship formulation: the fastest on the H100 that holds the
+#: oracle tolerance (PERF.md, route table: cuFFT, exact fp32, no dots).
+DEFAULT_METHOD = "fft"
+
+#: Dot precision per platform, for the matmul formulations.  "gpu" is
+#: the route table's choice: bf16x3 is the fastest precision that holds
+#: the oracle limits for parseval, radix and mxu alike (tf32 fails
+#: them); the CPU backend runs full fp32.  Any other platform is an
+#: error, not a silent default.
+PRECISION_BY_PLATFORM = {"gpu": "bf16x3", "cpu": "highest"}
+
+
+def precision_for(platform: str | None = None) -> str:
+    """The dot precision `platform` runs (default: JAX's default
+    backend)."""
+    platform = platform or jax.default_backend()
+    try:
+        return PRECISION_BY_PLATFORM[platform]
+    except KeyError:
+        raise ValueError(
+            f"no dot precision chosen for platform {platform!r}; known: "
+            f"{sorted(PRECISION_BY_PLATFORM)}") from None
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("ma_taps_tuple", "method", "matched_filter", "precision"),
 )
-def _process_planar_jit(iq_planar, hamming, ma_taps_tuple, fft_ma, gain,
-                        op_ar, op_ai, op_br, op_bi, op_asum, wd, phasors,
-                        method, matched_filter, precision="highest"):
-    # int16 planar input (compact device feed) casts on-device; f32 no-op.
+def _power_planar_jit(iq_planar, hamming, ma_taps_tuple, fft_ma,
+                      op_ar, op_ai, op_br, op_bi, op_asum, wd, phasors,
+                      method, matched_filter, precision="highest"):
+    """Stages 01-08: planar IQ [..., C, 2, m, n] -> pow [..., C, m/2].
+    int16 planar input (compact device feed) casts on-device."""
     xr = iq_planar[..., 0, :, :].astype(jnp.float32)
     xi = iq_planar[..., 1, :, :].astype(jnp.float32)
     if method == "parseval":
         prec = PRECISIONS[precision]
         yr, yi = _rmatmul_gauss(op_ar, op_ai, op_asum, xr, xi, prec)
-        pow_all = stage_b_parseval(yr, yi, wd, phasors, prec)
-        return stage09_10_products(pow_all[..., 0, :], pow_all[..., 1, :],
-                                   gain)
+        return stage_b_parseval(yr, yi, wd, phasors, prec)
     if method == "mxu":
         p = stage01_04_mxu_planar(xr, xi, (op_ar, op_ai), (op_br, op_bi),
                                   PRECISIONS[precision])
@@ -405,7 +420,7 @@ def _process_planar_jit(iq_planar, hamming, ma_taps_tuple, fft_ma, gain,
         # universally supported); rebuild complex on device.
         conv = matched_filter_spectral(p, jax.lax.complex(fft_ma[0], fft_ma[1]))
         pow_all = stage08_pulse_sum(conv)
-    return stage09_10_products(pow_all[..., 0, :], pow_all[..., 1, :], gain)
+    return pow_all
 
 
 def to_planar(iq) -> np.ndarray:
@@ -420,128 +435,51 @@ def to_planar(iq) -> np.ndarray:
 class SectorProcessor:
     """Compiled batch processor bound to one config + device placement.
 
-    Accepts complex IQ [B, C, m, n] (split to planar host-side) or planar
-    float32 IQ [B, C, 2, m, n] (the codec's native layout).  The on-device
-    dataflow is entirely real-valued.
+    Accepts complex IQ [B, C, m, n] (split to planar host-side), planar
+    IQ [B, C, 2, m, n] in float32 or int16 (the compact wire-native feed,
+    cast on the device), or — with wire_input=True — raw reference wire
+    bytes [B, sector_nbytes_wire] uint8, decoded on the device
+    (ops/device_codec) inside the same jit.
 
-    Methods:
-      * "mxu"   — stages 01-04 as two dense constant matmuls (ops folded)
-      * "radix" — same math with Cooley-Tukey radix-128 split DFTs,
-                  ~3.8x fewer MACs (ops/dft.py); falls back to "mxu" when
-                  the geometry doesn't split
-      * "fft"   — literal XLA-FFT formulation (stage-parity/golden path;
-                  unavailable on TPU runtimes without FFT support)
+    method: one of METHODS (module docstring); "radix" falls back to
+    "mxu" when the geometry does not split.  precision: a PRECISIONS key,
+    default precision_for() the device's platform.
 
     Usage::
 
-        proc = SectorProcessor(cfg, method="radix")
+        proc = SectorProcessor(cfg)
         zdb, zdr = proc(iq_batch)
     """
 
     def __init__(
         self,
         cfg: RadarConfig = DEFAULT_CONFIG,
-        method: str = "mxu",
+        method: str = DEFAULT_METHOD,
         matched_filter: str = "direct",
         device=None,
         precision: str | None = None,
-        layout: str = "natural",
         wire_input: bool = False,
-        wire_decode: str | None = None,
-        wire_order: str = "natural",
     ):
-        """layout="radix" (pallas only): input range rows arrive already in
-        radix-DIT order (io/codec.decode_iq_i16(radix=proc.input_radix)),
-        skipping the on-device permutation.
-
-        wire_decode (with wire_input): "fused" folds the decode INTO the
-        flagship kernel (fused_chain_power_wire — the deinterleave never
-        happens; needs the radix kernel, i.e. radix layout support);
-        "xla" is the standalone decode_wire_i16 pass feeding the planar
-        kernel.  None picks fused when the geometry supports it.
-
-        wire_order (with wire_input and layout="radix"): "radix" means
-        the wire BYTES arrive with range rows already in radix-DIT order
-        (io/codec.reorder_wire_rows — a host row-placement copy, free
-        for per-row-datagram ingest), so the device skips its row gather
-        — a measured 57 us/sector of chip time (WIRE_AB_r05.json);
-        "natural" (default) reorders on the device.
-
-        device: placement for the chain's constants (mxu/radix/fft
-        methods stage them there; inputs follow).  The pallas method's
-        constants are uncommitted, so its compute follows the INPUT's
-        device — callers staging input onto `device` (the executor,
-        bench) get the requested placement either way.
-
-        matched_filter/precision apply to the XLA methods; the fused
-        pallas kernel has its own fixed formulation (direct-equivalent
-        matched filter, bf16x3 splits) and rejects a non-default
-        matched_filter rather than silently ignoring it."""
+        """device: placement for the chain's constants; inputs follow."""
         if matched_filter not in ("direct", "fold", "spectral"):
             raise ValueError(
                 f"unknown matched_filter {matched_filter!r}: use "
                 "'direct', 'fold', or 'spectral'")
-        if method == "pallas" and matched_filter != "direct":
-            raise ValueError(
-                "method='pallas' fuses the whole chain; its output is "
-                "exactly the direct/fold matched-filter result and the "
-                "spectral variant does not exist there — pass "
-                "matched_filter='direct' (the default)")
+        if method not in METHODS:
+            raise ValueError(f"unknown method {method!r}: use one of "
+                             f"{METHODS}")
         if method == "radix" and matched_filter == "spectral":
             raise ValueError(
                 "method='radix' implements 'direct' and 'fold' matched "
                 "filters; use method='mxu' or 'fft' for the spectral "
                 "parity path")
-        if wire_input and method != "pallas":
-            raise ValueError("wire_input (on-device decode of raw wire "
-                             "bytes) requires method='pallas'")
-        if wire_decode is not None and not wire_input:
-            raise ValueError("wire_decode applies with wire_input=True")
-        if wire_decode not in (None, "fused", "xla"):
-            raise ValueError(f"unknown wire_decode {wire_decode!r}: use "
-                             "'fused' or 'xla'")
-        if wire_order not in ("natural", "radix"):
-            raise ValueError(f"unknown wire_order {wire_order!r}: use "
-                             "'natural' or 'radix'")
-        if wire_order == "radix" and not (wire_input and layout == "radix"):
-            raise ValueError(
-                "wire_order='radix' (pre-permuted wire rows) requires "
-                "wire_input=True and layout='radix' — the row order must "
-                "match the kernel's")
+        self.precision = precision or precision_for(
+            device.platform if device is not None else None)
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {self.precision!r}: use "
+                             f"one of {sorted(PRECISIONS)}")
         self.cfg = cfg
         self.wire_input = wire_input
-        #: dtype the wire path prefers its input in.  np.int32 for the
-        #: fused decode (the host VIEWS its staging bytes as '<i4' —
-        #: free — and the kernel skips the device-side byte bitcast);
-        #: np.uint8 otherwise.  Both dtypes are always accepted.
-        self.wire_dtype = np.uint8
-        self.wire_decode = None
-        #: row order the wire path expects its bytes in ("radix" = the
-        #: host pre-permuted the rows, io/codec.reorder_wire_rows)
-        self.wire_order = wire_order if wire_input else "natural"
-        self.input_radix = 1
-        if method == "pallas":
-            from .ops.pallas.fullchain import radix_for
-
-            if layout == "radix":
-                self.input_radix = radix_for(cfg.num_range_cells)
-            if wire_input:
-                fused_ok = (layout == "radix" and self.input_radix > 1)
-                if wire_decode is None:
-                    wire_decode = "fused" if fused_ok else "xla"
-                elif wire_decode == "fused" and not fused_ok:
-                    raise ValueError(
-                        "wire_decode='fused' needs the radix kernel "
-                        f"(layout='radix' and a radix-splittable m); got "
-                        f"layout={layout!r}, m={cfg.num_range_cells}")
-                self.wire_decode = wire_decode
-                if wire_decode == "fused":
-                    self.wire_dtype = np.int32
-            self._pallas_fn = self._build_pallas_fn(
-                cfg, device, pre_permuted=layout == "radix",
-                wire_input=wire_input)
-        elif layout != "natural":
-            raise ValueError("layout='radix' requires method='pallas'")
         if method == "radix":
             from .ops.dft import RadixStageOperators
 
@@ -552,100 +490,38 @@ class SectorProcessor:
         self.method = method
         self.matched_filter = matched_filter
         self.device = device
-        self.precision = precision or default_precision_name()
-        if method == "pallas":
-            return  # fused path: no XLA-side constants needed
         consts = PipelineConstants.build(cfg)
+        put = functools.partial(jax.device_put, device=device)
+        gain = put(consts.gain)
         if method == "radix":
             self._radix_fn = self._build_radix_fn(consts)
-            return
-        put = functools.partial(jax.device_put, device=device)
-        self._dev_consts = (
-            put(consts.hamming),
-            tuple(float(t) for t in consts.ma_taps),  # static: baked into jit
-            put(np.stack([consts.fft_ma.real, consts.fft_ma.imag]).astype(
-                np.float32)),
-            put(consts.gain),
-            put(np.ascontiguousarray(consts.op_a_half.real)),
-            put(np.ascontiguousarray(consts.op_a_half.imag)),
-            put(np.ascontiguousarray(consts.op_b.real)),
-            put(np.ascontiguousarray(consts.op_b.imag)),
-            put(np.ascontiguousarray(consts.op_a_half.real
-                                     + consts.op_a_half.imag)),
-            put(consts.wd),
-            put(consts.clip_phasors),
-        )
+        else:
+            self._dev_consts = (
+                put(consts.hamming),
+                tuple(float(t) for t in consts.ma_taps),  # static: in jit
+                put(np.stack([consts.fft_ma.real, consts.fft_ma.imag]).astype(
+                    np.float32)),
+                put(np.ascontiguousarray(consts.op_a_half.real)),
+                put(np.ascontiguousarray(consts.op_a_half.imag)),
+                put(np.ascontiguousarray(consts.op_b.real)),
+                put(np.ascontiguousarray(consts.op_b.imag)),
+                put(np.ascontiguousarray(consts.op_a_half.real
+                                         + consts.op_a_half.imag)),
+                put(consts.wd),
+                put(consts.clip_phasors),
+            )
 
-    def _build_pallas_fn(self, cfg: RadarConfig, device,
-                         pre_permuted: bool = False,
-                         wire_input: bool = False):
-        """Fused single-kernel chain (ops/pallas/fullchain.py): Gauss
-        complex matmul + Parseval epilogue, all VMEM-resident.  Falls back
-        to interpret mode off-TPU (tests).  wire_input=True prepends the
-        on-device wire decode (ops/device_codec) inside the same jit: the
-        caller feeds RAW reference wire bytes [B, nbytes] uint8."""
-        from .ops.pallas.fullchain import build_pallas_processor, use_interpret
-
-        consts = PipelineConstants.build(cfg)
-        interpret = use_interpret()
-        gain = jnp.asarray(consts.gain)
-        input_radix = self.input_radix
-        # device-side row gather: skipped when the host pre-permuted the
-        # wire rows (wire_order="radix") — the rows then arrive exactly
-        # as the radix kernel wants them
-        dev_radix = 1 if self.wire_order == "radix" else input_radix
-
-        if wire_input and self.wire_decode == "fused":
-            # decode folded INTO the kernel (fused_chain_power_wire): the
-            # wire's channel deinterleave never happens — the contraction
-            # runs on the interleaved lanes and the epilogue is channel-
-            # masked.  The only XLA-side work left is the contiguous
-            # radix row gather (+ one bitcast when handed uint8 bytes).
-            from .ops.device_codec import wire_words_i32
-            from .ops.pallas.fullchain import (fused_chain_power_wire,
-                                               radix_plan_host,
-                                               wire_lane_consts)
-
-            a_np, fac = radix_plan_host(consts, input_radix)
-            a_radix = jnp.asarray(a_np)
-            wd_il, ph_il = wire_lane_consts(consts, cfg.num_channels)
-            wd_il = jnp.asarray(wd_il)
-            ph_il = jnp.asarray(ph_il)
-            ch = cfg.num_channels
-
-            @jax.jit
-            def fn(wire):
-                w32 = wire_words_i32(wire, cfg, radix=dev_radix)
-                pow_all = fused_chain_power_wire(
-                    w32, a_radix, fac, wd_il, ph_il, ch,
-                    interpret=interpret)
-                return stage09_10_products(pow_all[..., 0, :],
-                                           pow_all[..., 1, :], gain)
-
-            return fn
-
-        power_fn = build_pallas_processor(consts, interpret=interpret,
-                                          pre_permuted=pre_permuted)
-
-        if wire_input:
-            from .ops.device_codec import decode_wire_i16
-
-            @jax.jit
-            def fn(wire_u8):
-                iq_planar = decode_wire_i16(wire_u8, cfg, radix=dev_radix)
-                pow_all = power_fn(iq_planar)
-                return stage09_10_products(pow_all[..., 0, :],
-                                           pow_all[..., 1, :], gain)
-
-            return fn
-
-        @jax.jit
-        def fn(iq_planar):
-            pow_all = power_fn(iq_planar)
+        def chain(iq_planar):
+            pow_all = self.power(iq_planar)
             return stage09_10_products(pow_all[..., 0, :],
                                        pow_all[..., 1, :], gain)
 
-        return fn
+        self._chain = jax.jit(chain)
+        if wire_input:
+            from .ops.device_codec import decode_wire_i16
+
+            self._wire_fn = jax.jit(
+                lambda wire: chain(decode_wire_i16(wire, cfg)))
 
     def _build_radix_fn(self, consts: PipelineConstants):
         """Per-instance jit for the radix method (its operator tables are
@@ -654,71 +530,68 @@ class SectorProcessor:
 
         ops = self._radix_ops
         taps = consts.ma_taps.copy()
-        gain = consts.gain.copy()
         prec = PRECISIONS[self.precision]
 
         matched_filter = self.matched_filter
 
         @jax.jit
         def fn(iq_planar):
-            p = stage01_04_radix(iq_planar[..., 0, :, :],
-                                 iq_planar[..., 1, :, :], ops, prec)
+            p = stage01_04_radix(
+                iq_planar[..., 0, :, :].astype(jnp.float32),
+                iq_planar[..., 1, :, :].astype(jnp.float32), ops, prec)
             if matched_filter == "fold":
-                pow_all = stage08_pulse_sum(p) * float(np.sum(taps))
-            else:
-                pow_all = stage08_pulse_sum(matched_filter_direct(p, taps))
-            return stage09_10_products(pow_all[..., 0, :], pow_all[..., 1, :],
-                                       jnp.asarray(gain))
+                return stage08_pulse_sum(p) * float(np.sum(taps))
+            return stage08_pulse_sum(matched_filter_direct(p, taps))
 
         return fn
+
+    def power(self, iq_planar):
+        """Stages 01-08 on planar IQ [..., C, 2, m, n] (float32 or int16)
+        -> per-channel pulse-summed power [..., C, m/2], on the device."""
+        if self.method == "radix":
+            return self._radix_fn(iq_planar)
+        h, taps, fm, ar, ai, br, bi, asum, wd, ph = self._dev_consts
+        return _power_planar_jit(iq_planar, h, taps, fm, ar, ai, br, bi,
+                                 asum, wd, ph,
+                                 self.method, self.matched_filter,
+                                 self.precision)
+
+    def lower(self, batch: int, dtype=np.int16):
+        """The jitted chain lowered for a [batch, C, 2, m, n] planar input
+        of `dtype` (or [batch, sector_nbytes_wire] uint8 with
+        wire_input): `.compile().memory_analysis()` says what a step of
+        that size needs on the device."""
+        if self.wire_input:
+            spec = jax.ShapeDtypeStruct(
+                (batch, self.cfg.sector_nbytes_wire), np.uint8)
+            return self._wire_fn.lower(spec)
+        c, m, n = self.cfg.sector_shape
+        return self._chain.lower(
+            jax.ShapeDtypeStruct((batch, c, 2, m, n), dtype))
 
     def __call__(self, iq: Array) -> Tuple[Array, Array]:
         if self.wire_input:
             nb = self.cfg.sector_nbytes_wire
-            ok = (not np.iscomplexobj(iq)
-                  and ((iq.dtype == np.uint8 and iq.shape[-1] == nb)
-                       or (iq.dtype == np.int32
-                           and iq.shape[-1] == nb // 4
-                           and self.wire_decode == "fused")))
-            if not ok:
+            if (np.iscomplexobj(iq) or iq.dtype != np.uint8
+                    or iq.shape[-1] != nb):
                 raise ValueError(
                     f"wire_input processor expects uint8 [..., {nb}] raw "
-                    "wire bytes (or, with wire_decode='fused', int32 "
-                    f"[..., {nb // 4}] LE-viewed words); got "
-                    f"{iq.dtype} {tuple(iq.shape)}")
+                    f"wire bytes; got {iq.dtype} {tuple(iq.shape)}")
             if iq.ndim == 1:
-                zdb, zdr = self._pallas_fn(iq[None])
+                zdb, zdr = self._wire_fn(iq[None])
                 return zdb[0], zdr[0]
-            return self._pallas_fn(iq)
+            return self._wire_fn(iq)
         if np.iscomplexobj(iq):
             iq = to_planar(np.asarray(iq) if isinstance(iq, np.ndarray) else iq)
-            if self.input_radix > 1:
-                # layout="radix" expects pre-permuted rows; complex input
-                # is in natural order, so permute here (host-side)
-                from .ops.pallas.fullchain import radix_row_order
-
-                order = radix_row_order(self.cfg.num_range_cells,
-                                        self.input_radix)
-                iq = np.asarray(iq)[..., order, :]
         expect = (self.cfg.num_channels, 2, self.cfg.m, self.cfg.n)
         if tuple(iq.shape[-4:]) != expect:
             raise ValueError(
                 f"planar IQ must end in [channels, 2, m, n] = {expect}, "
                 f"got {tuple(iq.shape)}"
             )
-        if self.method in ("pallas", "radix") and iq.ndim == 4:
-            # unbatched single sector: the fused/radix paths unpack an
-            # explicit batch axis (mxu/fft broadcast) — normalise so the
-            # API is consistent across methods
-            fn = self._pallas_fn if self.method == "pallas" else self._radix_fn
-            zdb, zdr = fn(iq[None])
+        if iq.ndim == 4:
+            # unbatched single sector: normalise to an explicit batch
+            # axis so every method sees the same rank
+            zdb, zdr = self._chain(iq[None])
             return zdb[0], zdr[0]
-        if self.method == "pallas":
-            return self._pallas_fn(iq)
-        if self.method == "radix":
-            return self._radix_fn(iq)
-        h, taps, fm, g, ar, ai, br, bi, asum, wd, ph = self._dev_consts
-        return _process_planar_jit(iq, h, taps, fm, g, ar, ai, br, bi,
-                                   asum, wd, ph,
-                                   self.method, self.matched_filter,
-                                   self.precision)
+        return self._chain(iq)

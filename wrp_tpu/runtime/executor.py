@@ -1,4 +1,4 @@
-"""Streaming executor: the TPU-native equivalent of the reference's v1
+"""Streaming executor: the equivalent of the reference's v1
 stream-cascade pipeline (gpu_1fp_streamcasc.cu:485-737).
 
 The reference's software pipeline overlapped, per sector: host UDP ingest of
@@ -16,7 +16,7 @@ k+2 and the compute thread is staging batch k+1's transfer — the reference's
 proven bottlenecks (SURVEY.md section 6 shows host input dominated every GPU
 variant; its fix was async H2D on the next stream,
 gpu_1fp_streamcasc.cu:680-688).  Batching replaces CUDA streams: one
-dispatch of [B, C, 2, m, n] keeps the chip busier than round-robin
+dispatch of [B, C, 2, m, n] keeps the card busier than round-robin
 single-sector launches ever could.
 
 Adds what the reference lacked (SURVEY.md section 5): recv timeouts with
@@ -35,7 +35,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..config import RadarConfig, DEFAULT_CONFIG
-from ..pipeline import SectorProcessor
+from ..pipeline import DEFAULT_METHOD, SectorProcessor
 from ..io import codec
 from .metrics import LatencyStats, StageTimers, Throughput, log
 from .volume import VolumeScan
@@ -43,7 +43,7 @@ from .volume import VolumeScan
 
 @dataclasses.dataclass
 class SectorTask:
-    planar: np.ndarray          # [C, 2, m, n] float32
+    planar: np.ndarray          # [C, 2, m, n] int16/float32, or wire bytes
     sector: int
     elevation: int
     feed: int = 0               # which ingest transport produced it
@@ -137,7 +137,7 @@ class StreamingExecutor:
         transport=None,
         publish: Optional[Callable] = None,
         batch: int = 8,
-        method: str = "mxu",
+        method: str = DEFAULT_METHOD,
         queue_depth: int = 4,
         debug_sync: bool = False,
         volume: Optional[VolumeScan] = None,
@@ -145,7 +145,6 @@ class StreamingExecutor:
         idle_limit: Optional[int] = None,
         processor: Optional[Callable] = None,
         device_decode: bool = False,
-        wire_order: str = "radix",
         lockstep: bool = False,
         checkpoint_every_s: Optional[float] = 30.0,
         stall_warning_s: Optional[float] = 10.0,
@@ -159,18 +158,10 @@ class StreamingExecutor:
         parallel.multihost.MultiHostProcessor.step_local for lock-step
         multi-host streaming); default builds a local SectorProcessor.
 
-        device_decode (pallas only): ingest threads ship RAW wire bytes
-        and the byteswap/deinterleave/radix-reorder runs on-chip inside
-        the processor's jit (ops/device_codec) — trades device time for
-        ~all the host decode cores (DESIGN.md §6 consolidation balance).
-
-        wire_order (with device_decode): "radix" (default) pre-permutes
-        each sector's wire ROWS on the host (io/codec.reorder_wire_rows,
-        a 6 KB-row gather at memcpy speed — a small fraction of the full
-        SIMD decode it replaces) so the device skips its row take — a
-        measured 57 us/sector of chip time (WIRE_AB_r05.json);
-        "natural" ships the bytes untouched (zero host copies) and
-        reorders on the device.
+        device_decode: ingest threads ship RAW wire bytes and the
+        byteswap/deinterleave runs on the device inside the processor's
+        jit (ops/device_codec) — trades device time for the host decode
+        cores.
 
         lockstep: wait for FULL batches (except at end-of-stream) so every
         host in a multi-host mesh issues the same number of collective
@@ -253,32 +244,20 @@ class StreamingExecutor:
         # would let a fast feed mask a slow feed's tail (the serving
         # question is per radar: "how stale is THIS sweep on screen")
         self.feed_latencies = [LatencyStats() for _ in range(nfeeds)]
-        if device_decode:
-            # the on-chip wire decode needs a step that takes raw wire
-            # bytes: either the built-in pallas fast path, or an override
-            # whose owner advertises wire input (e.g. a bound
-            # PulseShardedProcessor.step_local built with device_decode)
-            takes_wire = getattr(
-                getattr(processor, "__self__", processor),
-                "wire_input", False)
-            if processor is not None and not takes_wire:
-                raise ValueError(
-                    "device_decode with a processor override requires the "
-                    "override to take wire bytes (wire_input=True)")
-            if processor is None and method != "pallas":
-                raise ValueError("device_decode (on-chip wire decode) "
-                                 "requires method='pallas'")
-        if wire_order not in ("natural", "radix"):
-            raise ValueError(f"unknown wire_order {wire_order!r}: use "
-                             "'natural' or 'radix'")
+        if device_decode and processor is not None and not getattr(
+                getattr(processor, "__self__", processor), "wire_input",
+                False):
+            # an override must advertise that it takes wire bytes (e.g.
+            # a bound PulseShardedProcessor.step_local built with
+            # device_decode)
+            raise ValueError(
+                "device_decode with a processor override requires the "
+                "override to take wire bytes (wire_input=True)")
         self._device_decode = device_decode
-        self._wire_dtype = np.uint8      # refined after processor setup
-        self._wire_order = "natural"     # refined after processor setup
-        self._wire_radix = 1
         self._proc_takes_labels = False
         if processor is not None:
             self.processor = processor
-            self._decode_radix = 0          # external step: natural f32
+            self._host_i16 = False          # external step: float32
             self._do_device_put = False     # steps own their placement
             self._device = None
             # steps that accept labels get each batch's (sector,
@@ -293,33 +272,15 @@ class StreamingExecutor:
                     inspect.signature(processor).parameters)
             except (TypeError, ValueError):
                 self._proc_takes_labels = False
-        elif method == "pallas":
-            # fused-kernel fast path: compact int16 feed, rows decoded
-            # straight into radix-DIT order (no on-device permutation);
-            # with device_decode the host ships RAW wire bytes and the
-            # byteswap/deinterleave/reorder runs on-chip instead
-            # (ops/device_codec — frees ~all host decode cores,
-            # DESIGN.md §6)
-            self.processor = SectorProcessor(
-                cfg, method=method, layout="radix",
-                wire_input=device_decode,
-                wire_order=wire_order if device_decode else "natural")
-            self._decode_radix = self.processor.input_radix
-            self._do_device_put = True
-            self._device = self.processor.device
         else:
-            self.processor = SectorProcessor(cfg, method=method)
-            self._decode_radix = 0
+            # built-in step: the compact int16 feed (the 14-bit samples
+            # ARE int16; the chain casts on the device), or raw wire
+            # bytes decoded on the device
+            self.processor = SectorProcessor(cfg, method=method,
+                                             wire_input=device_decode)
+            self._host_i16 = True
             self._do_device_put = True
             self._device = self.processor.device
-        if device_decode:
-            proc_obj = getattr(self.processor, "__self__", self.processor)
-            self._wire_dtype = np.dtype(getattr(
-                proc_obj, "wire_dtype", np.uint8))
-            # honor what the PROCESSOR was built to expect (an override
-            # processor may want natural rows regardless of our arg)
-            self._wire_order = getattr(proc_obj, "wire_order", "natural")
-            self._wire_radix = int(getattr(proc_obj, "input_radix", 1))
         self._queue: "queue.Queue[Optional[SectorTask]]" = queue.Queue(
             maxsize=queue_depth * batch
         )
@@ -396,25 +357,12 @@ class StreamingExecutor:
                     sector, elevation = self._pos[feed]
                 with self.timers.time("ingest/decode"):
                     if self._device_decode:
-                        # ship raw bytes; decode runs on-chip inside the
-                        # processor's jit (transports hand over a fresh
-                        # buffer per sector, so the view is safe).  The
-                        # dtype is the processor's preference: int32 for
-                        # the wire-FUSED kernel (same bytes, viewed
-                        # '<i4' — skips the device-side bitcast), uint8
-                        # otherwise.  wire_order="radix" pre-permutes
-                        # the rows here (one 6 KB-row gather) so the
-                        # device skips its 57 us/sector row take.
-                        if self._wire_order == "radix":
-                            planar = codec.reorder_wire_rows(
-                                wire, self.cfg,
-                                radix=self._wire_radix).view(
-                                    self._wire_dtype)
-                        else:
-                            planar = np.frombuffer(wire, self._wire_dtype)
-                    elif self._decode_radix:
-                        planar = codec.decode_iq_i16(
-                            wire, self.cfg, radix=self._decode_radix)
+                        # ship raw bytes; decode runs on the device inside
+                        # the processor's jit (transports hand over a
+                        # fresh buffer per sector, so the view is safe)
+                        planar = np.frombuffer(wire, np.uint8)
+                    elif self._host_i16:
+                        planar = codec.decode_iq_i16(wire, self.cfg)
                     else:
                         planar = codec.decode_iq(wire, self.cfg)
                 task = SectorTask(planar, sector, elevation, feed,
@@ -546,7 +494,7 @@ class StreamingExecutor:
     def _dispatch_batch(self, tasks):
         """Stage a batch on device (async H2D) and dispatch the compiled
         chain; returns (tasks, zdb, zdr) with the device arrays still in
-        flight.  The TPU analogue of the reference's async H2D on the next
+        flight.  The analogue of the reference's async H2D on the next
         CUDA stream (gpu_1fp_streamcasc.cu:680-688): jax.device_put returns
         immediately with the transfer enqueued, and the jitted dispatch is
         async too, so the caller can keep draining/staging batch k+1 while
@@ -765,10 +713,10 @@ class StreamingExecutor:
         here would overflow the UDP receive buffer and drop sectors)."""
         c, m, n = self.cfg.sector_shape
         if self._device_decode:
-            nb = self.cfg.sector_nbytes_wire // self._wire_dtype.itemsize
-            zeros = np.zeros((self.batch, nb), self._wire_dtype)
+            zeros = np.zeros((self.batch, self.cfg.sector_nbytes_wire),
+                             np.uint8)
         else:
-            dtype = np.int16 if self._decode_radix else np.float32
+            dtype = np.int16 if self._host_i16 else np.float32
             zeros = np.zeros((self.batch, c, 2, m, n), dtype)
         np.asarray(self.processor(zeros)[0])
 

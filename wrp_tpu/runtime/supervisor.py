@@ -49,6 +49,9 @@ import time
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence
 
+from ..device import card_env
+from ..pipeline import DEFAULT_METHOD
+
 log = logging.getLogger("wrp_tpu.supervisor")
 
 
@@ -137,7 +140,7 @@ class Supervisor:
         *,
         transport: str = "udp",
         batch: int = 8,
-        method: str = "mxu",
+        method: str = DEFAULT_METHOD,
         timeout: float = 5.0,
         collective_timeout: float = 30.0,
         target_sectors: Optional[int] = None,
@@ -153,6 +156,7 @@ class Supervisor:
         extra_args: Sequence[str] = (),
         env: Optional[dict] = None,
         pulse_shard: bool = False,
+        cards: int = 0,
         spawn: Optional[Callable[[int, List[str], Optional[dict],
                                   Optional[Path]],
                                  subprocess.Popen]] = None,
@@ -176,7 +180,12 @@ class Supervisor:
         (<feed>.hK.npz), the freshest copy seeding every new
         generation, so no processed sector is lost while ANY host
         survives.  A 1-host generation degenerates to a plain stream
-        consuming the full wire."""
+        consuming the full wire.
+
+        cards: cards on this machine.  With cards > 0 worker host_id
+        runs with CUDA_VISIBLE_DEVICES=host_id, so each process opens
+        one card (a JAX process reserves most of every card it opens);
+        more hosts than cards is refused."""
         if not feeds:
             raise ValueError("need at least one feed")
         if hosts < 1:
@@ -190,14 +199,19 @@ class Supervisor:
                 raise ValueError("pulse_shard needs a fan-out wire "
                                  "(udp broadcast or zmq pub/sub); tcp "
                                  "delivers each sector to one reader")
-            if method not in ("mxu", "fft", "pallas"):
-                raise ValueError("pulse_shard supports method mxu, fft, "
-                                 "or pallas (pallas runs the seq-sharded "
-                                 "fused kernel)")
+            from ..parallel.sharded import SHARD_METHODS
+
+            if method not in SHARD_METHODS:
+                raise ValueError("pulse_shard supports method "
+                                 f"{', '.join(SHARD_METHODS)}")
         elif hosts > len(feeds):
             # a host with zero feeds would idle forever and (in lock-step
             # mode) starve the mesh into everyone's collective timeout
             raise ValueError(f"{hosts} hosts but only {len(feeds)} feeds")
+        if cards and hosts > cards:
+            raise ValueError(f"{hosts} hosts but {cards} cards: one "
+                             "process per card")
+        self.cards = cards
         self.pulse_shard = pulse_shard
         if transport not in ("udp", "tcp", "zmq"):
             raise ValueError(f"unsupported transport {transport!r}")
@@ -396,7 +410,8 @@ class Supervisor:
                                      coordinator)
             pubs.append(argv[argv.index("--zmq-pub") + 1]
                         if "--zmq-pub" in argv else None)
-            proc = self._spawn(host_id, argv, self.env, logf)
+            proc = self._spawn(host_id, argv,
+                               card_env(self.env, host_id, self.cards), logf)
             workers.append(_Worker(host_id, share, proc, ready, logf))
         self._event("launch", hosts=hosts, coordinator=coordinator,
                     workers=[{"host_id": w.host_id, "pid": w.proc.pid,
